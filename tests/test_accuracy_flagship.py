@@ -15,11 +15,11 @@ Two layers of assertion:
    ordering fp32 >= tier - EPS holds (the r4 inversion must be impossible
    at any mAP level). No absolute-mAP bar here: held-out mAP needs the
    protocol-strength budget (8000 steps at 416²), which belongs to the
-   TPU evidence run, not a CPU test.
+   GPU evidence run, not a CPU test.
 
 2. ``test_accuracy_evidence_files`` (fast): the committed
    ``plans/accuracy_<tier>.json`` evidence (written by
-   tools/accuracy_protocol.py on TPU at 416²) must exist, carry the
+   tools/accuracy_protocol.py at 416²) must exist, carry the
    CURRENT protocol hash (stale evidence fails the suite, it doesn't
    silently ship), reach non-noise fp32 mAP, and satisfy criterion +
    ordering per tier. This is the enforcement point for BASELINE.md's
@@ -105,19 +105,6 @@ def test_flagship_w8a16_and_int8_within_criterion(trained_flagship):
     assert r32["mAP_50"] >= r8["mAP_50"] - EPS, (r32, r8)
 
 
-@pytest.mark.slow
-def test_flagship_pallas_map_identical_to_int32(trained_flagship):
-    spec, store, pairs = trained_flagship
-    _quantize(spec, store)
-    eng16 = Engine(spec, store, precision="int16", backend="xla",
-                   compute="int32")
-    r16 = yeval.evaluate_engine(eng16, pairs, num_classes=80, thresh=0.05)
-    engp = Engine(spec, store, precision="int16", backend="xla",
-                  compute="pallas")
-    rp = yeval.evaluate_engine(engp, pairs, num_classes=80, thresh=0.05)
-    assert rp["mAP_50"] == r16["mAP_50"], (rp, r16)
-
-
 # ---------------------------------------------------------------------------
 # Committed-evidence enforcement (fast suite)
 # ---------------------------------------------------------------------------
@@ -129,7 +116,7 @@ def _load_evidence(tier):
     path = os.path.join(PLANS, f"accuracy_{tier}.json")
     assert os.path.exists(path), (
         f"missing accuracy evidence {path} — run tools/accuracy_protocol.py "
-        f"on TPU at 416² after any protocol change")
+        f"on the GPU at 416² after any protocol change")
     with open(path) as f:
         return json.load(f)
 

@@ -2,10 +2,9 @@
 
 The w8a8 tier keeps the reference-style per-layer activation iofm table
 but gives each OUTPUT CHANNEL its own power-of-two weight/bias exponent;
-the requant shift becomes an (N,) vector broadcast in the conv epilogue
-(XLA and Pallas alike). These tests pin: the vector-shift kernel epilogue,
-the XLA conv path against the numpy golden twin, scale-quality vs the
-per-layer mode, and full-net bit-exactness jax-vs-golden.
+the requant shift becomes an (N,) vector broadcast in the conv epilogue.
+These tests pin: the conv path against the numpy golden twin, scale
+quality vs the per-layer mode, and full-net bit-exactness jax-vs-golden.
 """
 
 import numpy as np
@@ -16,39 +15,9 @@ from yolotpu import golden
 from yolotpu.graph import ConvSpec
 from yolotpu.models import yolov2, zoo
 from yolotpu.ops import convops
-from yolotpu.ops.pallas_matmul import matmul_int8_requant
 from yolotpu.quant import (calibrate_activations_int8, dequantize_tensor,
                            quantize_weights_int8)
 from yolotpu.weights import WeightStore
-
-
-def _np_requant_ref_vec(x, w, bias, shifts, leaky):
-    acc = x.astype(np.int64) @ w.astype(np.int64)
-    s = np.asarray(shifts, np.int64)
-    half = np.where(s > 0, np.int64(1) << np.maximum(s - 1, 0), np.int64(0))
-    acc = np.where(s > 0, (acc + half) >> np.maximum(s, 0),
-                   acc << np.maximum(-s, 0))
-    v = np.clip(acc + bias, -128, 127).astype(np.int32)
-    if leaky:
-        v = np.clip(np.where(v < 0, -((-v) // 10), v), -128, 127)
-    return v.astype(np.int8)
-
-
-@pytest.mark.parametrize("M,K,N,leaky", [
-    (256, 128, 128, True),
-    (300, 128, 256, False),   # M padded internally
-])
-def test_pallas_matmul_vector_shift_interpret(M, K, N, leaky):
-    rng = np.random.default_rng(0)
-    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
-    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
-    b = rng.integers(-1000, 1000, N).astype(np.int32)
-    # mixed per-channel shifts incl. zero and negative (left-shift) lanes
-    s = rng.integers(-2, 12, N).astype(np.int32)
-    got = np.asarray(matmul_int8_requant(jnp.asarray(x), jnp.asarray(w),
-                                         jnp.asarray(b), jnp.asarray(s),
-                                         leaky, interpret=True))
-    np.testing.assert_array_equal(got, _np_requant_ref_vec(x, w, b, s, leaky))
 
 
 def test_conv_int8_perchannel_matches_numpy_twin():
@@ -70,23 +39,6 @@ def test_conv_int8_perchannel_matches_numpy_twin():
         jnp.asarray(w.transpose(2, 3, 1, 0)),
         jnp.asarray(bias_shifted), 1, 1, "leaky",
         qa_in + qw - qa_out))[0].transpose(2, 0, 1)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_conv_int8_perchannel_pallas_1x1_matches_xla():
-    rng = np.random.default_rng(2)
-    C, F = 128, 128
-    x = rng.integers(-128, 128, (1, 16, 32, C)).astype(np.int8)
-    w = rng.integers(-128, 128, (1, 1, C, F)).astype(np.int8)
-    b = rng.integers(-500, 500, F).astype(np.int32)
-    s = rng.integers(0, 12, F).astype(np.int32)
-    want = np.asarray(convops.conv_int8(jnp.asarray(x), jnp.asarray(w),
-                                        jnp.asarray(b), 1, 0, "leaky", s,
-                                        use_pallas=False))
-    got = np.asarray(matmul_int8_requant(
-        jnp.asarray(x.reshape(-1, C)), jnp.asarray(w.reshape(C, F)),
-        jnp.asarray(b), jnp.asarray(s), True,
-        interpret=True)).reshape(want.shape)
     np.testing.assert_array_equal(got, want)
 
 
@@ -124,52 +76,6 @@ def test_perchannel_scales_cut_weight_quant_error():
             worse += 1
     assert better >= len(spec.conv_layers()) - 1 and worse == 0, \
         (better, worse)
-
-
-@pytest.mark.parametrize("C,N,act,shift", [
-    (32, 64, "leaky", None),      # per-channel shifts, C pads to 128
-    (128, 128, "linear", 7),      # scalar shift, no pad
-])
-def test_conv3x3_s8_wi_bitexact(C, N, act, shift):
-    """Weight-resident s8 conv3 kernel (one dot per tap) vs the XLA s8
-    conv path of conv_int8."""
-    from yolotpu.ops import pallas_q16 as q16
-    rng = np.random.default_rng(23)
-    B, H, W = 2, 16, 16
-    x = rng.integers(-128, 128, (B, H, W, C)).astype(np.int8)
-    w = rng.integers(-128, 128, (3, 3, C, N)).astype(np.int8)
-    b = rng.integers(-1000, 1000, N).astype(np.int32)
-    s = (rng.integers(0, 12, N).astype(np.int32) if shift is None
-         else shift)
-    want = np.asarray(convops.conv_int8(
-        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1, 1, act, s))
-    wp = q16.prep_conv_weights_w8(w, b, s)
-    got = q16.conv3x3_s8_wi(jnp.asarray(x), wp, leaky=(act == "leaky"),
-                            interpret=True)
-    assert got is not None
-    np.testing.assert_array_equal(np.asarray(got)[..., :N], want)
-
-
-@pytest.mark.slow
-def test_int8_forward_pallas_wi_equals_xla(monkeypatch):
-    """Full-net int8 forward with the weight-resident conv3 kernels
-    engaged must equal the plain XLA int8 forward bit-for-bit."""
-    monkeypatch.setenv("YOLO2_INT8_CONV3_WI", "1")
-    spec = zoo.build("yolov2", width=64, height=64)
-    store = WeightStore.synthetic(spec, seed=0)
-    rng = np.random.default_rng(29)
-    img = rng.random((3, 64, 64)).astype(np.float32)
-    act_q8 = calibrate_activations_int8(spec, store, [img])
-    quantize_weights_int8(store, act_q8)
-    x = jnp.asarray(img.transpose(1, 2, 0)[None])
-    params = yolov2.params_int8(spec, store, pallas=True)
-    assert any("wp8" in v for v in params.values())
-    f_pl = yolov2.build_forward(spec, "int8", store.qtables8,
-                                compute="pallas", outputs=("head",))
-    f_x = yolov2.build_forward(spec, "int8", store.qtables8,
-                               outputs=("head",))
-    np.testing.assert_array_equal(np.asarray(f_pl(params, x)["head"]),
-                                  np.asarray(f_x(params, x)["head"]))
 
 
 @pytest.mark.slow

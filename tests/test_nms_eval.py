@@ -108,8 +108,8 @@ def test_darknet_label_io(tmp_path):
     assert empty.boxes.shape == (0, 4)
 
 
-def test_tpu_check_cpu():
-    from yolotpu.cli.tpu_check import main
+def test_device_check_cpu():
+    from yolotpu.cli.device_check import main
     assert main(["enumerate", "alloc", "compute", "latency"]) == 0
 
 

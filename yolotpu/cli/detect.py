@@ -1,4 +1,4 @@
-"""``yolov2_detect``-compatible detection CLI, TPU-backed.
+"""``yolov2_detect``-compatible detection CLI on the accelerator.
 
 Flag contract follows the reference host CLI
 (``src/models/yolov2/yolov2_main.cpp:62-131``): --cfg --names --input
@@ -7,7 +7,7 @@ default output prefix ``results/<stem>_prediction``; region dumps controlled
 by YOLO2_DUMP_REGION[_RAW] / YOLO2_NO_DUMP.
 
 Backends map to this framework's executors: the reference's "hls" (the
-accelerator simulation) becomes "xla" (the TPU program); "cpu"/"golden" is
+accelerator simulation) becomes "xla" (the jitted XLA program); "cpu"/"golden" is
 the numpy oracle — actually implemented here, unlike the reference's stub
 (``yolov2_main.cpp:287-292``). Extra flags cover what the reference bakes in:
 --model (built-in zoo instead of a cfg file), --weights-dir (artifact
@@ -48,10 +48,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--precision", default="fp32",
                     choices=["fp32", "int16", "int8", "w8a16"])
     ap.add_argument("--compute", default="int32",
-                    choices=["int32", "pallas", "f32", "f32_highest",
-                             "exact"],
-                    help="int16 conv compute mode (pallas = fused exact-"
-                         "int16 TPU kernels; interpret-mode off-TPU)")
+                    choices=["int32", "f32", "f32_highest", "exact"],
+                    help="int16 conv compute mode (int32 = exact integer "
+                         "accumulation; exact = the golden engine replica)")
     ap.add_argument("--weights-dir", default="weights",
                     help="directory with the .bin artifact set")
     ap.add_argument("--synthetic-weights", action="store_true",
@@ -59,8 +58,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--net-size", type=int, default=None, metavar="N",
                     help="override the network input size (zoo models only;"
-                         " off-TPU smoke runs — mirrors bench.py's"
-                         " BENCH_WIDTH/BENCH_HEIGHT)")
+                         " small smoke runs)")
     ap.add_argument("-v", "--verbose", type=int, default=None)
     ap.add_argument("positional", nargs="?", default=None,
                     help="input image (positional)")
@@ -74,6 +72,7 @@ def default_names(classes: int) -> list[str] | None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from ..compile_cache import configure as configure_compile_cache
     from ..graph import NetworkSpec
     from ..image import load_image, save_image
     from ..models import zoo
@@ -82,6 +81,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..runtime.engine import Engine, load_or_synthesize
 
     args = build_argparser().parse_args(argv)
+    configure_compile_cache()
     if args.verbose is not None:
         ylog.set_level(args.verbose)
     input_path = args.input or args.positional

@@ -8,7 +8,7 @@ dir, -c config, -l labels, -t/-n thresholds, -v verbosity, --max-frames,
 
 The accelerator init sequence (mmap /dev/mem, udmabuf, chunked uncached
 copies — main.c:559-735) becomes: build the jitted XLA program and
-device_put the weights once; per-frame traffic is one small host->HBM
+device_put the weights once; per-frame traffic is one small host->device
 transfer and one head readback.
 """
 
@@ -22,7 +22,7 @@ import time
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="yolo2_tpu", description=__doc__)
+    ap = argparse.ArgumentParser(prog="yolo2_linux", description=__doc__)
     ap.add_argument("-i", "--image", default=None)
     ap.add_argument("--camera", default=None, metavar="DEV")
     ap.add_argument("--video", default=None, metavar="PATH")
@@ -63,15 +63,15 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="per-layer timing table before the run")
     ap.add_argument("--profile-mode", default="auto",
                     choices=["auto", "prefix", "layer"],
-                    help="prefix = in-program bisection (the only honest "
-                         "mode for compute=pallas, whose inter-layer glue "
-                         "exists only in-program); layer = isolated "
-                         "segments; auto picks prefix for pallas")
+                    help="prefix = in-program bisection (each layer's "
+                         "cost inside the whole program); layer = isolated "
+                         "segments; auto picks layer")
     ap.add_argument("--profile-batch", type=int, default=8)
     return ap
 
 
 def main(argv: list[str] | None = None) -> int:
+    from ..compile_cache import configure as configure_compile_cache
     from ..graph import NetworkSpec
     from ..models import zoo
     from ..runtime import logging as ylog
@@ -80,6 +80,7 @@ def main(argv: list[str] | None = None) -> int:
     from .detect import default_names
 
     args = build_argparser().parse_args(argv)
+    configure_compile_cache()
     if args.verbose is not None:
         ylog.set_level(args.verbose)
 
@@ -109,7 +110,7 @@ def main(argv: list[str] | None = None) -> int:
         from ..runtime.profiler import profile_layers, profile_prefix
         mode = args.profile_mode
         if mode == "auto":
-            mode = "prefix" if args.compute == "pallas" else "layer"
+            mode = "layer"
         if mode == "prefix":
             rep = profile_prefix(spec, store, args.precision, args.compute,
                                  batch=args.profile_batch, progress=True)

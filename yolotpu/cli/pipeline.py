@@ -3,14 +3,14 @@
 The reference drives host-sanity -> quickstart -> HLS IP -> Vivado ->
 firmware packaging -> deploy -> board run (``scripts/run_pipeline.py:847-
 855``), YAML-configured with --from/--to stage windowing (``:866-888``).
-The TPU flow has no bitstream; its stages are:
+This flow has no bitstream; its stages are:
 
   host_sanity     tool/import checks (python, jax, packages, toolchain)
   artifacts       synthetic or real weight artifacts + int16 quantization
   host_quickstart golden fp32 + int16 smoke detection (the reference's
                   host quickstart gate, run_pipeline.py:394-449)
-  tpu_compile     jit + compile-check of the flagship program
-  tpu_run         timed detection run on the device
+  compile         jit + compile-check of the flagship program
+  run             timed detection run on the device
   report          report bundle via yolo2_report
 
 Stage windowing (--from/--to), per-stage ordering and a YAML config are
@@ -25,7 +25,7 @@ import sys
 import time
 
 STAGES = ["host_sanity", "artifacts", "host_quickstart",
-          "tpu_compile", "tpu_run", "report"]
+          "compile", "run", "report"]
 
 DEFAULT_CONFIG = """\
 # yolotpu pipeline configuration (run_pipeline equivalent)
@@ -105,7 +105,7 @@ def stage_host_quickstart(cfg: dict) -> None:
         print(f"  golden {precision}: {len(dets)} dets in {res.seconds:.2f}s")
 
 
-def stage_tpu_compile(cfg: dict) -> None:
+def stage_compile(cfg: dict) -> None:
     import jax
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
@@ -117,9 +117,9 @@ def stage_tpu_compile(cfg: dict) -> None:
     print(f"  compiled in {time.time() - t0:.1f}s on {jax.devices()[0].device_kind}")
 
 
-def stage_tpu_run(cfg: dict) -> None:
+def stage_run(cfg: dict) -> None:
     from . import report as rp
-    args = ["--report-dir", "reports", "run", "--label", "pipeline_tpu_run",
+    args = ["--report-dir", "reports", "run", "--label", "pipeline_run",
             "--model", cfg["model"], "--precision", cfg["precision"],
             "--compute", cfg["compute"], "--batch", str(cfg["batch"]),
             "--steps", str(cfg["steps"])]
@@ -137,8 +137,8 @@ STAGE_FNS = {
     "host_sanity": stage_host_sanity,
     "artifacts": stage_artifacts,
     "host_quickstart": stage_host_quickstart,
-    "tpu_compile": stage_tpu_compile,
-    "tpu_run": stage_tpu_run,
+    "compile": stage_compile,
+    "run": stage_run,
     "report": stage_report,
 }
 

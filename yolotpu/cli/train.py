@@ -1,4 +1,4 @@
-"""Training CLI: regenerate weight artifacts natively on TPU.
+"""Training CLI: regenerate weight artifacts natively on the accelerator.
 
 The reference outsources weight production to an external repo
 (``weights/README.md:33-59``); this trainer closes the loop: darknet-format
@@ -86,6 +86,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="shard over all visible devices (dp x tp)")
     args = ap.parse_args(argv)
+    from ..compile_cache import configure as configure_compile_cache
+    configure_compile_cache()
 
     from ..graph import NetworkSpec
     spec = (NetworkSpec.from_cfg(args.cfg) if args.cfg

@@ -17,24 +17,154 @@ from __future__ import annotations
 import numpy as np
 
 
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# samples per pixel by PNG color type: gray, RGB, palette, gray+A, RGBA
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter(ftype: int, row: bytearray, prior: bytes, bpp: int) -> None:
+    """Undo one scanline's PNG filter in place (PNG spec section 9)."""
+    n = len(row)
+    if ftype == 1:                                   # Sub
+        for i in range(bpp, n):
+            row[i] = (row[i] + row[i - bpp]) & 255
+    elif ftype == 2:                                 # Up
+        row[:] = ((np.frombuffer(row, np.uint8).astype(np.uint16)
+                   + np.frombuffer(prior, np.uint8)) & 255
+                  ).astype(np.uint8).tobytes()
+    elif ftype == 3:                                 # Average
+        for i in range(n):
+            a = row[i - bpp] if i >= bpp else 0
+            row[i] = (row[i] + ((a + prior[i]) >> 1)) & 255
+    elif ftype == 4:                                 # Paeth
+        for i in range(n):
+            a = row[i - bpp] if i >= bpp else 0
+            b = prior[i]
+            c = prior[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            row[i] = (row[i] + pred) & 255
+    elif ftype != 0:
+        raise ValueError(f"PNG: unknown filter type {ftype}")
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB (alpha dropped, gray expanded).
+
+    Non-interlaced 8/16-bit gray, RGB, palette, gray+alpha and RGBA —
+    zlib + numpy only, no imaging library."""
+    import struct
+    import zlib
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, idat, plte = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(
+                ">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if interlace or depth not in (8, 16) or ctype not in _PNG_SAMPLES:
+        raise ValueError(f"PNG: unsupported format (bit depth {depth}, "
+                         f"color type {ctype}, interlace {interlace})")
+    bpp = _PNG_SAMPLES[ctype] * depth // 8
+    stride = w * bpp
+    raw = zlib.decompress(b"".join(idat))
+    out = bytearray(h * stride)
+    prior = bytes(stride)
+    for y in range(h):
+        row = bytearray(raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)])
+        _unfilter(raw[y * (stride + 1)], row, prior, bpp)
+        out[y * stride:(y + 1) * stride] = row
+        prior = row
+    px = np.frombuffer(bytes(out), np.uint8).reshape(h, w, -1)
+    if depth == 16:
+        px = px[:, :, 0::2]                       # big-endian high bytes
+    if ctype == 3:
+        return plte[px[:, :, 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, :3])
+
+
+def encode_png(hwc: np.ndarray) -> bytes:
+    """(H, W, 3) or (H, W) uint8 -> PNG bytes (filter 0 rows, zlib)."""
+    import struct
+    import zlib
+    hwc = np.ascontiguousarray(hwc, np.uint8)
+    h, w = hwc.shape[:2]
+    ctype = 2 if hwc.ndim == 3 else 0
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           hwc.reshape(h, -1)], axis=1)
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def _pil(path: str):
+    """PIL's Image module for formats other than PNG."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: only PNG is read and written without PIL; install "
+            "Pillow for other image formats") from e
+    return Image
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """Image file -> (H, W, 3) uint8 RGB. PNG needs nothing beyond numpy
+    and zlib; other formats go through PIL."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _PNG_SIG:
+        return decode_png(data)
+    import io
+    with _pil(path).open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
+
+def save_rgb(hwc: np.ndarray, path: str) -> None:
+    """(H, W, 3) uint8 -> image file; PNG without PIL, else via PIL."""
+    if path.lower().endswith(".png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(hwc))
+    else:
+        _pil(path).fromarray(np.ascontiguousarray(hwc, np.uint8)).save(path)
+
+
 def load_image(path: str, channels: int = 3) -> np.ndarray:
     """Load an image file to CHW float32 in [0,1] (darknet layout)."""
-    from PIL import Image
-    with Image.open(path) as im:
-        im = im.convert("RGB" if channels == 3 else "L")
-        hwc = np.asarray(im, dtype=np.uint8)
-    if hwc.ndim == 2:
-        hwc = hwc[:, :, None]
+    hwc = load_rgb(path)
+    if channels == 1:
+        # ITU-R 601-2 luma, PIL's "L" conversion
+        hwc = ((hwc[:, :, 0].astype(np.uint32) * 19595
+                + hwc[:, :, 1].astype(np.uint32) * 38470
+                + hwc[:, :, 2].astype(np.uint32) * 7471 + 0x8000) >> 16
+               ).astype(np.uint8)[:, :, None]
     return (hwc.astype(np.float32) / 255.0).transpose(2, 0, 1)
 
 
 def save_image(chw: np.ndarray, path: str) -> None:
-    """CHW float [0,1] -> PNG/JPEG via PIL (save_image_png equivalent)."""
-    from PIL import Image
+    """CHW float [0,1] -> image file (save_image_png equivalent)."""
     hwc = np.clip(chw.transpose(1, 2, 0) * 255.0 + 0.5, 0, 255).astype(np.uint8)
     if hwc.shape[2] == 1:
         hwc = hwc[:, :, 0]
-    Image.fromarray(hwc).save(path)
+    save_rgb(hwc, path)
 
 
 def resize_image(im: np.ndarray, w: int, h: int) -> np.ndarray:

@@ -14,24 +14,15 @@ hard-coded layer indices like the reference (``yolo2_model.cpp:79-110``).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import os
-
 from ..graph import (ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec,
                      ReorgSpec, RouteSpec)
 from ..ops import convops, pool, region, reorg
 from ..weights import QTables, WeightStore
-
-# Pallas-tier engine selection lives in ONE explicit plan
-# (models/engine_plan.py): a chip-keyed plan file (plans/<device_kind>.json)
-# resolved at params-build time, env levers as bisection overrides, and the
-# v5e-measured table as the warned fallback. See engine_plan.resolve_knobs.
-
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -58,68 +49,23 @@ def params_int16(spec: NetworkSpec, store: WeightStore) -> dict:
     return _params_quantized(spec, store.int16, store.qtables)
 
 
-def params_int8(spec: NetworkSpec, store: WeightStore,
-                pallas: bool = False) -> dict:
-    """w8a8 turbo tier parameters. ``pallas=True`` + YOLO2_INT8_CONV3_WI=1
-    additionally packs eligible 3x3/s1 layers for the weight-resident s8
-    kernel (ops.pallas_q16.conv3x3_s8_wi) — probe-gated until the
-    in-program bisection prices it against XLA's s8 conv."""
+def params_int8(spec: NetworkSpec, store: WeightStore) -> dict:
+    """w8a8 turbo tier parameters (int8 HWIO weights, pre-shifted bias)."""
     if store.qtables8 is None:
         raise ValueError("int8 params require Q tables (quantize_weights_int8)")
-    qt = store.qtables8
-    p = _params_quantized(spec, store.int8, qt)
-    if pallas and os.environ.get("YOLO2_INT8_CONV3_WI", "0") == "1":
-        from ..ops import pallas_q16 as q16
-        plan = Int16Plan.build(spec, qt)
-        for ci, l in enumerate(spec.conv_layers()):
-            if not (l.size == 3 and l.stride == 1 and l.groups == 1
-                    and l.pad == 1 and l.c >= 8
-                    and l.activation in ("leaky", "linear")):
-                continue
-            w, b = store.int8[l.idx]
-            shift_bias = qt.bias_q[ci] - plan.conv_qa_out[l.idx]
-            bias_shifted = _round_shift_np(b.astype(np.int64), shift_bias)
-            p[f"conv{l.idx}"]["wp8"] = q16.prep_conv_weights_w8(
-                np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
-                bias_shifted.astype(np.int32), plan.conv_shift_out[l.idx])
-    return p
+    return _params_quantized(spec, store.int8, store.qtables8)
 
 
-def params_w8a16(spec: NetworkSpec, store: WeightStore,
-                 pallas: bool = False) -> dict:
+def params_w8a16(spec: NetworkSpec, store: WeightStore) -> dict:
     """w8a16 tier parameters: per-channel int8 weights (HWIO), the
-    activation lo-plane correction ``cw``, and the pre-shifted bias.
-
-    ``pallas=True`` additionally packs eligible 3x3/s1 layers for the
-    weight-resident w8a16 kernel (ops.pallas_q16.conv3x3_w8a16_wi; the
-    XLA pack stays alongside as the runtime fallback when no band
-    geometry fits)."""
+    activation lo-plane correction ``cw``, and the pre-shifted bias."""
     from ..ops.convops import prep_weights_w8a16
     if store.qtables_w8 is None:
         raise ValueError("w8a16 params require Q tables "
                          "(quant.quantize_weights_w8a16)")
-    qt = store.qtables_w8
-    plan = Int16Plan.build(spec, qt)
-    w8_conv3 = os.environ.get("YOLO2_W8A16_CONV3", "1") == "1"
-    p = {}
-    for ci, l in enumerate(spec.conv_layers()):
-        w, b = store.w8a16[l.idx]
-        w_hwio = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
-        shift_bias = qt.bias_q[ci] - plan.conv_qa_out[l.idx]
-        bias_shifted = _round_shift_np(b.astype(np.int64), shift_bias)
-        pw = {
-            "w": jnp.asarray(w_hwio),
-            "cw": jnp.asarray(prep_weights_w8a16(w_hwio)),
-            "b": jnp.asarray(bias_shifted.astype(np.int32)),
-        }
-        if (pallas and w8_conv3 and l.size == 3 and l.stride == 1
-                and l.groups == 1 and l.pad == l.size // 2 and l.c >= 8
-                and l.activation in ("leaky", "linear")):
-            from ..ops import pallas_q16 as q16
-            pw["wp8"] = q16.prep_conv_weights_w8(
-                w_hwio, bias_shifted.astype(np.int32),
-                plan.conv_shift_out[l.idx])
-        p[f"conv{l.idx}"] = pw
+    p = _params_quantized(spec, store.w8a16, store.qtables_w8)
+    for pw in p.values():
+        pw["cw"] = jnp.asarray(prep_weights_w8a16(np.asarray(pw["w"])))
     return p
 
 
@@ -151,268 +97,6 @@ def _round_shift_np(v: np.ndarray, shift) -> np.ndarray:
     half = np.where(s > 0, np.int64(1) << np.maximum(s - 1, 0), np.int64(0))
     return np.where(s > 0, (v + half) >> np.maximum(s, 0),
                     v << np.maximum(-s, 0))
-
-
-def params_q16(spec: NetworkSpec, store: WeightStore) -> dict:
-    """Exact-int16 Pallas parameter format (compute='pallas').
-
-    Each conv gets a kernel-ready weight pack for the engine the PLAN
-    (``models/engine_plan.py``) assigns it — the measured production mix,
-    with every alternate kind reachable per-layer via YOLO2_Q16_PLAN. All
-    engines compute the identical int32-wraparound accumulation, so the
-    tier stays bit-exact vs the golden int32 mode.
-
-    Activations flow CHANNEL-PADDED (>=128 lanes; pad channels are encoded
-    zeros contributing exactly 0): kernels emit padded outputs and consume
-    padded inputs; reorg/route/region and XLA fallbacks get the exact-width
-    slice. Weight packs are built against the producer's padded width.
-    """
-    from ..ops import pallas_q16 as q16
-    from . import engine_plan as ep
-    if store.qtables is None:
-        raise ValueError("int16 params require Q tables")
-    qt = store.qtables
-    plan = Int16Plan.build(spec, qt)
-    knobs = ep.resolve_knobs()      # chip plan file, env levers on top
-    overrides = knobs["plan"]
-    dec8 = os.environ.get("YOLO2_Q16_XLA_DEC8", "0") == "1"
-    p = {}
-
-    # walk the graph tracking each layer's (real, padded) channel width
-    width: dict[int, tuple[int, int]] = {}   # idx -> (real, padded)
-    prev = (spec.net.channels, spec.net.channels)
-    for l in spec.layers:
-        if isinstance(l, ConvSpec):
-            in_real, in_pad = prev
-            w, b = store.int16[l.idx]
-            ci = [c.idx for c in spec.conv_layers()].index(l.idx)
-            shift_bias = qt.bias_q[ci] - plan.conv_qa_out[l.idx]
-            bias_shifted = _round_shift_np(
-                b.astype(np.int64), shift_bias).astype(np.int32)
-            whwio = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
-            kind = ep.select_engine(
-                l, spec, entry=knobs["entry"], max_hw=knobs["max_hw"],
-                xla_min_c=knobs["xla_min_c"], overrides=overrides)
-            # dec8 lever: XLA-routed 3x3 layers run the exact two-s8-conv
-            # engine. Measured OFF e2e (112.1 vs 79.0 ms b128); per-layer
-            # xla8 stays reachable through YOLO2_Q16_PLAN.
-            if kind == "xla" and dec8 and l.size > 1 \
-                    and l.activation in ("leaky", "linear"):
-                kind = "xla8"
-            p[f"conv{l.idx}"], prev = _prep_engine(
-                kind, l, spec, whwio, bias_shifted, in_pad, q16)
-        elif isinstance(l, (MaxPoolSpec,)):
-            pass                               # padded passthrough
-        elif isinstance(l, ReorgSpec):
-            prev = (prev[0] * l.stride ** 2,) * 2   # sliced exact by forward
-        elif isinstance(l, RouteSpec):
-            real = sum(width[s][0] for s in l.layers)
-            prev = (real, real)                # forward slices inputs exact
-        elif isinstance(l, RegionSpec):
-            pass
-        width[l.idx] = prev
-    return p
-
-
-def _prep_engine(kind: str, l: ConvSpec, spec: NetworkSpec,
-                 whwio: np.ndarray, bias_shifted: np.ndarray,
-                 in_pad: int, q16) -> tuple[dict, tuple[int, int]]:
-    """Build the weight pack for one (layer, engine-kind) pairing and
-    return (pack, (real, padded) output width). An override that names an
-    engine the layer cannot legally run raises — the plan never silently
-    re-routes (VERDICT r3 weak #4)."""
-    from . import engine_plan as ep
-
-    simple_act = l.activation in ("leaky", "linear")
-    darknet_pad = l.pad == l.size // 2
-    regular = (l.stride == 1 and simple_act and l.groups == 1
-               and darknet_pad)
-
-    def need(cond: bool, what: str) -> None:
-        if not cond:
-            raise ValueError(
-                f"engine {kind!r} is not applicable to conv{l.idx} "
-                f"({l.size}x{l.size}/{l.stride} {l.c}->{l.n} "
-                f"{l.activation}): requires {what}")
-
-    if kind == "mm":
-        need(l.size == 1 and regular, "1x1/s1, simple act, darknet pad")
-        wp = q16.prep_matmul_weights(
-            whwio.reshape(l.c, l.n), bias_shifted, kp=in_pad)
-        return {"kind": "mm", "wp": wp}, (l.n, wp["Np"])
-
-    if kind == "entry_sd":
-        # fused entry conv+pool in pure XLA: one 4x4/s2 conv whose
-        # output-channel groups are the four pool-window members
-        # (make_entry_sd_weights); group-max on the int32 accumulator
-        # folds into the conv's epilogue, so the 416²x32 conv
-        # intermediate never touches HBM
-        need(l.size == 3 and regular and l.c <= 4 and l.h % 2 == 0
-             and l.w % 2 == 0 and ep.next_is_pool22(spec, l.idx),
-             "3x3/s1 C<=4 entry followed by a darknet 2x2/s2 pool")
-        w4 = convops.make_entry_sd_weights(whwio, l.n)
-        return {"kind": "entry_sd", "w4": jnp.asarray(w4),
-                "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "sd_pool":
-        # conv+pool fusion for MID-STAGE layers (VERDICT r4 #1): the
-        # entry_sd identity at C >= 8 — one NHWC 4x4/s2 conv whose
-        # channel groups are the four pool-window members, group-max on
-        # the int32 accumulator. The full-resolution conv output never
-        # touches HBM; costs 16/9 the MACs.
-        need(l.size == 3 and regular and l.h % 2 == 0 and l.w % 2 == 0
-             and ep.next_is_pool22(spec, l.idx),
-             "3x3/s1 conv followed by a darknet 2x2/s2 pool")
-        w4 = convops.make_entry_sd_weights(whwio, l.n)
-        return {"kind": "sd_pool", "w4": jnp.asarray(w4),
-                "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "entry_s2d":
-        # the entry_sd accumulation re-indexed over a space-to-depth(2)
-        # input: a block-aligned 2x2/s1 conv over 4C channels replaces the
-        # 4x4/s2 overlapping-window conv XLA tiles poorly at C=3
-        need(l.size == 3 and regular and l.c <= 4 and l.h % 2 == 0
-             and l.w % 2 == 0 and ep.next_is_pool22(spec, l.idx),
-             "3x3/s1 C<=4 entry followed by a darknet 2x2/s2 pool")
-        w2 = convops.make_entry_s2d_weights(whwio, l.n)
-        return {"kind": "entry_s2d", "w2": jnp.asarray(w2),
-                "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "entry_sdmm":
-        # evidence-only (lost 106.7 vs 92.3 ms e2e, round 4): the entry_sd
-        # identity computed as ONE fused Pallas patch-matmul —
-        # space-to-depth(2) packs the 4x4/s2 window into K = 16*C
-        # contraction lanes with the pool group-max in the epilogue.
-        # Bit-exact, but the 48-channel patch planes physically pad to
-        # 128 lanes and the extra HBM traffic outweighs the MXU win
-        need(l.size == 3 and regular and l.c <= 4 and l.h % 2 == 0
-             and l.w % 2 == 0 and ep.next_is_pool22(spec, l.idx),
-             "3x3/s1 C<=4 entry followed by a darknet 2x2/s2 pool")
-        w4 = convops.make_entry_sd_weights(whwio, l.n)
-        wp = q16.prep_entry_sdmm_weights(w4, bias_shifted)
-        return {"kind": "entry_sdmm", "wp": wp, "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "entryf":
-        # evidence-only (lost ~110 vs 92 ms e2e, round 3): fused entry
-        # conv+pool with IN-KERNEL patch feed
-        need(l.size == 3 and regular and l.c <= 4 and l.w % 8 == 0
-             and l.h % 2 == 0 and ep.next_is_pool22(spec, l.idx),
-             "3x3/s1 C<=4 entry, W%8==0, followed by 2x2/s2 pool")
-        wp = q16.prep_entryf_weights(whwio, bias_shifted)
-        return {"kind": "entryf", "wp": wp, "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "entry8":
-        # evidence-only (XLA-side patch build measured 160 ms, round 2)
-        need(l.size == 3 and regular and l.c <= 4 and l.w % 8 == 0
-             and l.h % 2 == 0 and ep.next_is_pool22(spec, l.idx),
-             "3x3/s1 C<=4 entry, W%8==0, followed by 2x2/s2 pool")
-        wp = q16.prep_entry8_weights(whwio, bias_shifted)
-        return {"kind": "entry8", "wp": wp, "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "conv3":
-        need(l.size == 3 and regular and l.c >= 8,
-             "3x3/s1 C>=8, simple act, darknet pad")
-        # producer width may be exact (e.g. after an XLA-kind layer);
-        # clamp to a lane multiple so the kernel never sees sub-128-lane
-        # channel tiles. tn_wi: the tile the weight-resident path can
-        # host (52x52 needs tn=128) — applied only when wi can actually
-        # run (balanced split + YOLO2_Q16_WI), else the abuf budget rule
-        cp3 = max(in_pad, q16.LANE)
-        wp = q16.prep_conv_weights(
-            whwio, bias_shifted, cp=cp3,
-            tn_wi=q16.wi_tn(l.h, l.w, cp3, l.n))
-        return {"kind": "conv3", "wp": wp}, (l.n, wp["Np"])
-
-    if kind == "conv3p2":
-        # evidence-only: 2x2-spatial lane packing for small-C layers
-        need(l.size == 3 and regular and l.c < 128
-             and (4 * l.c) % 128 == 0 and l.n % 64 == 0
-             and l.h % 2 == 0 and l.w % 2 == 0,
-             "3x3/s1, 4C%128==0, N%64==0, even H/W")
-        wp = q16.prep_conv_weights_p2(whwio, bias_shifted)
-        return {"kind": "conv3p2", "wp": wp}, (l.n, l.n)
-
-    if kind == "mm_pairs":
-        # evidence-only: column-pair-packed entry conv (175 ms, round 2)
-        first_conv = next(
-            (x.idx for x in spec.layers if isinstance(x, ConvSpec)), -1)
-        need(l.size == 3 and regular and l.idx == first_conv
-             and l.n % 32 == 0 and l.w % 2 == 0,
-             "first conv, 3x3/s1, N%32==0, even W")
-        wp = q16.prep_matmul_weights_pairs(whwio, bias_shifted)
-        return {"kind": "mm_pairs", "wp": wp}, (l.n, l.n)
-
-    if kind == "mm_patches":
-        # evidence-only: XLA im2col + fused matmul
-        need(l.size == 3 and regular, "3x3/s1, simple act, darknet pad")
-        wp = q16.prep_matmul_weights(
-            whwio.reshape(9 * l.c, l.n), bias_shifted)
-        return {"kind": "mm_patches", "wp": wp}, (l.n, wp["Np"])
-
-    if kind == "nchw":
-        # evidence-only: dense-lane NCHW entry conv
-        first_conv = next(
-            (x.idx for x in spec.layers if isinstance(x, ConvSpec)), -1)
-        need(l.idx == first_conv, "first conv")
-        return {"kind": "nchw", "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    if kind == "xla8":
-        # dec8: exact s16 conv as two int8 MXU convs; requires the
-        # balanced weight encoding — falls back to the plain int32
-        # engine when the weights don't admit it
-        need(l.size > 1 and simple_act, "KxK (K>1), simple act")
-        sp = convops.split_weights_dec8(whwio)
-        if sp is not None:
-            return {"kind": "xla8", "wh": jnp.asarray(sp[0]),
-                    "wl": jnp.asarray(sp[1]), "cw": jnp.asarray(sp[2]),
-                    "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-        kind = "xla"
-
-    if kind == "xla":
-        # XLA s16 conv, int32 accumulation; consumes/produces exact widths
-        return {"kind": "xla", "w": jnp.asarray(whwio),
-                "b": jnp.asarray(bias_shifted)}, (l.n, l.n)
-
-    raise ValueError(f"unknown engine kind {kind!r} for conv{l.idx}")
-
-
-def _next_is_pool22(spec: NetworkSpec, idx: int) -> bool:
-    """Back-compat alias; the plan's copy is authoritative."""
-    from . import engine_plan as ep
-    return ep.next_is_pool22(spec, idx)
-
-
-def _patches3x3_pairs(x: jnp.ndarray) -> jnp.ndarray:
-    """Column-pair 3x4 im2col: (B,H,W,C) -> (B,H,W/2,12C).
-
-    Row (b, r, j) holds the union patch for output pixels (r, 2j) and
-    (r, 2j+1): taps (dy in 0..2, dxi in 0..3, c) at padded row r+dy-1,
-    padded col 2j+dxi-1 (matches prep_matmul_weights_pairs' row order).
-    Built from contiguous slices of a column-pair view — no strided
-    slicing (pathological for int16 on TPU; here x is f32 anyway)."""
-    b, h, w, c = x.shape
-    xp = jnp.pad(x, ((0, 0), (1, 1), (1, 3), (0, 0)))
-    xv = xp.reshape(b, h + 2, (w + 4) // 2, 2, c)
-    taps = [xv[:, dy:dy + h, dxi // 2:dxi // 2 + w // 2, dxi % 2, :]
-            for dy in range(3) for dxi in range(4)]
-    return jnp.concatenate(taps, axis=-1)
-
-
-def _patches3x3(x: jnp.ndarray) -> jnp.ndarray:
-    """SAME-pad 3x3 im2col along channels: (B,H,W,C) -> (B,H,W,9C),
-    tap-major (matches prep_matmul_weights' (9C, N) row order)."""
-    b, h, w, c = x.shape
-    xp = jnp.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
-    taps = [xp[:, dy:dy + h, dx:dx + w, :]
-            for dy in range(3) for dx in range(3)]
-    return jnp.concatenate(taps, axis=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -516,8 +200,6 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
         raise ValueError(f"precision {precision!r}")
     is_int8 = precision == "int8"
     is_w8a16 = precision == "w8a16"
-    first_conv_idx = next(
-        (l.idx for l in spec.layers if isinstance(l, ConvSpec)), -1)
 
     needed = {s for l in spec.layers if isinstance(l, RouteSpec) for s in l.layers}
 
@@ -526,8 +208,8 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
         boundaries. The reorg's flat channel<->space reinterpretation defeats
         GSPMD propagation from tp(channel)-sharded producers — without the
         constraint the partitioner falls back to 'involuntary full
-        rematerialization' (seen in MULTICHIP_r01). An explicit all-gather
-        here is the efficient form of the same data movement."""
+        rematerialization'. An explicit all-gather here is the efficient
+        form of the same data movement."""
         if mesh is None:
             return v
         from jax.sharding import NamedSharding, PartitionSpec
@@ -535,28 +217,10 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
         return jax.lax.with_sharding_constraint(
             v, NamedSharding(mesh, spec_))
 
-    by_idx = {l.idx: l for l in spec.layers}
-
     def forward(params: dict, x: jnp.ndarray) -> dict:
         acts: dict[int, jnp.ndarray] = {}
         all_acts: dict[str, jnp.ndarray] = {}
-        skip_pool: set[int] = set()    # pools folded into a fused conv
-        half_pool: dict[int, int] = {}  # pool idx -> pre-pool W (vert half
-        # done in the producing kernel's epilogue; horizontal half left)
 
-        def _consumer_plane_capable(idx: int) -> bool:
-            """True when layer idx+1 consumes (hi, lo) s8 planes directly
-            (plane flow kills the split16/pad glue on kernel->kernel
-            edges — the round-2 reason large-spatial Pallas layers lost
-            in-program)."""
-            nxt = by_idx.get(idx + 1)
-            return (isinstance(nxt, ConvSpec)
-                    and params.get(f"conv{nxt.idx}", {}).get("kind")
-                    in ("mm", "conv3", "xla8"))
-
-        def _plane_ok(idx: int) -> bool:
-            return (not debug and idx not in needed
-                    and _consumer_plane_capable(idx))
         if x.dtype == jnp.uint8:
             # uint8 frames upload 4x cheaper; /255 on device is bit-identical
             # to the host loader's f32 division (yolo2_image_loader.c:34-80)
@@ -567,29 +231,6 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
         else:
             cur = x.astype(jnp.float32)
         head = None
-        cur_real = spec.net.channels   # real channels of cur (pallas mode
-        # keeps activations channel-padded to >=128 lanes between kernels)
-        cur_layout = "flat"            # flat | p2 (2x2 spatial in lanes) |
-        #                                hpair (col pairs in lanes)
-
-        def exact(v):
-            return v if v.shape[-1] == cur_real else v[..., :cur_real]
-
-        def flat(v):
-            """Undo spatial lane packing / plane encoding. Packed layouts
-            unpack to exact channels; planes recombine to int16; flat
-            tensors pass through PADDED (activations flow channel-padded
-            between kernels — consumers slice to K/C only when the width
-            matches neither the exact nor padded form)."""
-            from ..ops import pallas_q16 as q16
-            if cur_layout == "planes":
-                return q16.recombine16(*v)
-            if cur_layout == "p2":
-                return q16.unpack2(v)
-            if cur_layout == "hpair":
-                b_, h_, wb_, c2 = v.shape
-                return v.reshape(b_, h_, wb_ * 2, c2 // 2)
-            return v
 
         for l in spec.layers:
             if isinstance(l, ConvSpec):
@@ -599,271 +240,26 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
                                             l.pad, l.activation)
                 elif is_int8:
                     # the conv feeding the region head emits int16 logits
-                    # at an 8-bits-finer scale (head16): 8-bit region
-                    # logits quantize the box regression away for free-
-                    # to-fix cost (<1% of MACs; see conv_int8)
+                    # at an 8-bits-finer scale (head16, see conv_int8)
                     head16 = (region_spec is not None
                               and l.idx + 1 == region_spec.idx)
-                    done = False
-                    if compute == "pallas" and "wp8" in pw and not head16:
-                        from ..ops import pallas_q16 as q16
-                        v = q16.conv3x3_s8_wi(
-                            cur, pw["wp8"], leaky=(l.activation == "leaky"))
-                        if v is not None:
-                            cur = v[..., :l.n]
-                            done = True
-                    if not done:
-                        cur = convops.conv_int8(
-                            cur, pw["w"], pw["b"], l.stride, l.pad,
-                            l.activation, plan.conv_shift_out[l.idx],
-                            use_pallas=(compute == "pallas"),
-                            head16=head16)
+                    cur = convops.conv_int8(
+                        cur, pw["w"], pw["b"], l.stride, l.pad,
+                        l.activation, plan.conv_shift_out[l.idx],
+                        head16=head16)
                 elif is_w8a16:
-                    done = False
-                    if compute == "pallas" and "wp8" in pw:
-                        from ..ops import pallas_q16 as q16
-                        v = q16.conv3x3_w8a16_wi(
-                            cur, pw["wp8"], leaky=(l.activation == "leaky"))
-                        if v is not None:
-                            cur = v[..., :l.n]   # crop padded out channels
-                            done = True
-                    if not done:
-                        cur = convops.conv_w8a16(
-                            cur, pw["w"], pw["cw"], pw["b"], l.stride,
-                            l.pad, l.activation, plan.conv_shift_out[l.idx],
-                            use_pallas=(compute == "pallas"))
-                elif compute == "pallas" and "kind" in pw:
-                    from ..ops import pallas_q16 as q16
-                    shift = plan.conv_shift_out[l.idx]
-                    leaky = l.activation == "leaky"
-                    kind = pw["kind"]
-                    if (kind in ("entry8", "entryf", "entry_sd",
-                                 "entry_sdmm", "entry_s2d", "sd_pool")
-                            and (debug or l.idx in needed)):
-                        # per-layer dumps / a route into the conv's own
-                        # pre-pool output need the unfused intermediate:
-                        # fall back to the XLA conv (the pool output,
-                        # l.idx+1, is correctly produced by the fused path
-                        # at the pool step)
-                        kind = "xla_fallback"
-                    if kind == "entry_sd":
-                        # quantize in dense NCHW (minor dims spatial): the
-                        # 3-lane NHWC int16 image would be ~42x physically
-                        # padded; transpose on f32 + elementwise quantize
-                        # commute with the NHWC formulation bit-for-bit
-                        xt = jnp.transpose(x, (0, 3, 1, 2))
-                        xq = convops.quantize_input_int16(xt, plan.input_q)
-                        cur = convops.conv_pool_entry_sd(
-                            xq, pw["w4"], pw["b"], shift, l.activation)
-                        skip_pool.add(l.idx + 1)
-                        cur_layout = "flat"
-                    elif kind == "entry_s2d":
-                        xt = jnp.transpose(x, (0, 3, 1, 2))
-                        xq = convops.quantize_input_int16(xt, plan.input_q)
-                        cur = convops.conv_pool_entry_s2d(
-                            xq, pw["w2"], pw["b"], shift, l.activation)
-                        skip_pool.add(l.idx + 1)
-                        cur_layout = "flat"
-                    elif kind == "entry_sdmm":
-                        xt = jnp.transpose(x, (0, 3, 1, 2))
-                        xq = convops.quantize_input_int16(xt, plan.input_q)
-                        cur = q16.entry_sdmm_forward(xq, pw["wp"],
-                                                     shift, leaky)
-                        skip_pool.add(l.idx + 1)
-                        cur_layout = "flat"
-                    elif kind == "sd_pool":
-                        cur = convops.conv_pool_sd(
-                            exact(flat(cur)), pw["w4"], pw["b"], shift,
-                            l.activation)
-                        skip_pool.add(l.idx + 1)
-                        cur_layout = "flat"
-                    elif kind == "entryf":
-                        # quantize AFTER merging (W, C) into dense lanes:
-                        # a materialized 3-lane int16 tensor is physically
-                        # ~42x padded on TPU; the reshape on the network
-                        # input is a free bitcast and quantization
-                        # commutes elementwise (same trick as mm_pairs)
-                        xm = x.reshape(x.shape[0], x.shape[1], -1)
-                        xqm = convops.quantize_input_int16(
-                            xm, plan.input_q)
-                        cur = q16.entryf_forward(xqm, pw["wp"],
-                                                 shift, leaky)
-                        skip_pool.add(l.idx + 1)
-                        cur_layout = "flat"
-                    elif kind == "entry8":
-                        cur = q16.entry8_forward(exact(cur), pw["wp"],
-                                                 shift, leaky)
-                        skip_pool.add(l.idx + 1)
-                        cur_layout = "flat"
-                    elif kind == "mm":
-                        wpd = pw["wp"]
-                        if cur_layout == "planes":
-                            vh, vl = cur
-                            if vh.shape[-1] not in (wpd["K"], wpd["Kp"]):
-                                vh = vh[..., :wpd["K"]]
-                                vl = vl[..., :wpd["K"]]
-                            b_, h_, w_, c_ = vh.shape
-                            vin = (vh.reshape(-1, c_), vl.reshape(-1, c_))
-                        else:
-                            v = flat(cur)
-                            if v.shape[-1] not in (wpd["K"], wpd["Kp"]):
-                                v = v[..., :wpd["K"]]
-                            b_, h_, w_, c_ = v.shape
-                            vin = v.reshape(-1, c_)
-                        om = "planes" if _plane_ok(l.idx) else "i16"
-                        o = q16.matmul_q16_requant(vin, wpd, shift, leaky,
-                                                   out_np=True, out_mode=om)
-                        if om == "planes":
-                            cur = (o[0].reshape(b_, h_, w_, -1),
-                                   o[1].reshape(b_, h_, w_, -1))
-                            cur_layout = "planes"
-                        else:
-                            cur = o.reshape(b_, h_, w_, -1)
-                            cur_layout = "flat"
-                    elif kind == "conv3":
-                        wpd = pw["wp"]
-                        if cur_layout == "planes":
-                            vh, vl = cur
-                            if vh.shape[-1] not in (wpd["C"], wpd["Cp"]):
-                                vh = vh[..., :wpd["C"]]
-                                vl = vl[..., :wpd["C"]]
-                            vin = (vh, vl)
-                        else:
-                            v = flat(cur)
-                            if v.shape[-1] not in (wpd["C"], wpd["Cp"]):
-                                v = v[..., :wpd["C"]]
-                            vin = v
-                        om = "i16"
-                        if not debug and l.idx not in needed:
-                            if _next_is_pool22(spec, l.idx):
-                                om = "planes_vpool"
-                            elif _consumer_plane_capable(l.idx):
-                                om = "planes"
-                        o = q16.conv3x3_q16_flat(vin, wpd, shift, leaky,
-                                                 out_mode=om)
-                        if o is None and om == "planes_vpool":
-                            om = ("planes" if _plane_ok(l.idx) else "i16")
-                            o = q16.conv3x3_q16_flat(vin, wpd, shift, leaky,
-                                                     out_mode=om)
-                        if o is None:
-                            vi16 = (q16.recombine16(*vin)
-                                    if isinstance(vin, tuple) else vin)
-                            cur = q16.conv3x3_q16_requant(
-                                vi16, wpd, shift, leaky, out_np=True)
-                            cur_layout = "flat"
-                        elif om == "planes_vpool":
-                            cur = o
-                            cur_layout = "planes"
-                            half_pool[l.idx + 1] = l.out_w
-                        else:
-                            cur = o
-                            cur_layout = ("planes" if om == "planes"
-                                          else "flat")
-                    elif kind == "conv3p2":
-                        if cur_layout != "p2":
-                            cur = q16.pack2(exact(flat(cur))
-                                            if cur_layout != "flat"
-                                            else exact(cur))
-                        cur = q16.conv3x3p2_q16_requant(cur, pw["wp"], shift,
-                                                        leaky)
-                        cur_layout = "p2"
-                    elif kind == "mm_pairs":
-                        # first conv: column-pair-packed patches built on the
-                        # f32 input (quantization commutes elementwise)
-                        pf = _patches3x3_pairs(x)
-                        pq = convops.quantize_input_int16(pf, plan.input_q)
-                        b_, h_, wb_, k_ = pq.shape
-                        o = q16.matmul_q16_requant(pq.reshape(-1, k_),
-                                                   pw["wp"], shift, leaky)
-                        cur = o.reshape(b_, h_, wb_, -1)
-                        cur_layout = "hpair"
-                    elif kind == "xla8":
-                        cin = pw["wh"].shape[2]
-                        if cur_layout == "planes":
-                            vh, vl = cur
-                            if vh.shape[-1] != cin:
-                                vh = vh[..., :cin]
-                                vl = vl[..., :cin]
-                            vin = (vh, vl)
-                        else:
-                            vin = exact(flat(cur))
-                        op = _plane_ok(l.idx)
-                        cur = convops.conv_int16_dec8(
-                            vin, pw["wh"], pw["wl"], pw["cw"], pw["b"],
-                            l.stride, l.pad, l.activation, shift,
-                            out_planes=op)
-                        cur_layout = "planes" if op else "flat"
-                    elif kind == "mm_patches":
-                        if l.idx == first_conv_idx:
-                            # patches commute with elementwise quantization:
-                            # build them on the f32 input so the tiny-C
-                            # entry conv never touches int16 XLA slicing
-                            pf = _patches3x3(x)
-                            pq = convops.quantize_input_int16(pf, plan.input_q)
-                        else:
-                            pq = _patches3x3(exact(flat(cur)))
-                        b_, h_, w_, k_ = pq.shape
-                        o = q16.matmul_q16_requant(pq.reshape(-1, k_),
-                                                   pw["wp"], shift, leaky,
-                                                   out_np=True)
-                        cur = o.reshape(b_, h_, w_, -1)
-                        cur_layout = "flat"
-                    elif kind == "nchw":
-                        # dense-lane entry: transpose the fp32 image to
-                        # NCHW (minor dims H, W — dense) BEFORE quantizing
-                        # so the int16 image never materializes in the
-                        # ~42x-padded 3-lane NHWC layout
-                        xt = jnp.transpose(x, (0, 3, 1, 2))
-                        xq = convops.quantize_input_int16(xt, plan.input_q)
-                        cur = convops.conv_int16_nchw(
-                            xq, pw["w"], pw["b"], l.stride, l.pad,
-                            l.activation, shift)
-                        cur_layout = "flat"
-                    else:
-                        cur = convops.conv_int16(
-                            exact(flat(cur)), pw["w"], pw["b"], l.stride,
-                            l.pad, l.activation, shift, compute="int32")
-                        cur_layout = "flat"
+                    cur = convops.conv_w8a16(
+                        cur, pw["w"], pw["cw"], pw["b"], l.stride, l.pad,
+                        l.activation, plan.conv_shift_out[l.idx])
                 else:
                     cur = convops.conv_int16(cur, pw["w"], pw["b"], l.stride,
                                              l.pad, l.activation,
                                              plan.conv_shift_out[l.idx],
                                              compute=compute)
-                cur_real = l.n
             elif isinstance(l, MaxPoolSpec):
-                from ..ops import pallas_q16 as q16
-                if l.idx in skip_pool:
-                    pass                   # already applied in the producer
-                elif l.idx in half_pool:
-                    # vertical half was folded into the producing kernel's
-                    # epilogue; finish with the fused horizontal half
-                    om_pl = (not debug and l.idx not in needed
-                             and _consumer_plane_capable(l.idx))
-                    cur = q16.hpool2_planes(cur, half_pool[l.idx],
-                                            out_planes=om_pl)
-                    cur_layout = "planes" if om_pl else "flat"
-                elif (cur_layout == "p2" and l.size == 2 and l.stride == 2):
-                    # each packed block IS one pool window: lane-group max
-                    cur = q16.maxpool2x2_p2(cur)
-                    cur_layout = "flat"
-                elif (cur_layout == "hpair" and l.size == 2 and l.stride == 2):
-                    b_, h_, wb_, c2 = cur.shape
-                    c_ = c2 // 2
-                    v = cur.reshape(b_, h_ // 2, 2, wb_, 2, c_)
-                    cur = jnp.max(jnp.max(v, axis=4), axis=2)
-                    cur_layout = "flat"
-                else:
-                    if cur_layout != "flat":
-                        cur = flat(cur)
-                        cur_layout = "flat"
-                    cur = pool.maxpool(cur, l.size, l.stride, l.padding)
+                cur = pool.maxpool(cur, l.size, l.stride, l.padding)
             elif isinstance(l, ReorgSpec):
-                if cur_layout != "flat":
-                    cur = flat(cur)
-                    cur_layout = "flat"
-                cur = reorg.reorg(_batch_only(exact(cur)), l.stride)
-                cur = _batch_only(cur)
-                cur_real = cur.shape[-1]
+                cur = _batch_only(reorg.reorg(_batch_only(cur), l.stride))
                 if plan is not None:
                     sh = plan.reorg_realign.get(l.idx, 0)
                     if sh != 0:
@@ -872,33 +268,20 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
                 cur = (acts[l.layers[0]] if len(l.layers) == 1 else
                        _batch_only(jnp.concatenate(
                            [acts[s] for s in l.layers], axis=-1)))
-                cur_real = cur.shape[-1]
-                cur_layout = "flat"
             elif isinstance(l, RegionSpec):
-                if cur_layout != "flat":
-                    cur = flat(cur)
-                    cur_layout = "flat"
                 head = (convops.dequantize_int16(
-                            exact(cur),
-                            plan.output_q + (8 if is_int8 else 0))
+                            cur, plan.output_q + (8 if is_int8 else 0))
                         if plan is not None else cur)
                 cur = head
-                cur_real = cur.shape[-1]
             if l.idx in needed or debug:
-                if cur_layout != "flat":
-                    cur = flat(cur)
-                    cur_layout = "flat"
-                acts[l.idx] = exact(cur)   # routes/dumps see exact widths
+                acts[l.idx] = cur
             if debug:
-                all_acts[f"layer{l.idx}"] = acts.get(l.idx, exact(cur))
+                all_acts[f"layer{l.idx}"] = cur
 
         out: dict = {}
         if head is None:   # headless graphs (e.g. backbone-only tests)
-            if cur_layout != "flat":
-                cur = flat(cur)
-                cur_layout = "flat"
-            head = (exact(cur) if plan is None
-                    else convops.dequantize_int16(exact(cur), plan.output_q))
+            head = (cur if plan is None
+                    else convops.dequantize_int16(cur, plan.output_q))
         if "head" in outputs:
             out["head"] = head
         if (("boxes" in outputs) or ("detections" in outputs)) \
@@ -919,22 +302,3 @@ def build_forward(spec: NetworkSpec, precision: str = "fp32",
 
     return forward
 
-
-def jit_forward(spec: NetworkSpec, store: WeightStore, precision: str = "fp32",
-                compute: str = "int32", outputs=("head", "boxes"),
-                donate_input: bool = False):
-    """Convenience: build params + a jitted forward with params closed over
-    as compile-time constants living in HBM."""
-    if precision == "int16":
-        params = (params_q16(spec, store) if compute == "pallas"
-                  else params_int16(spec, store))
-        fwd = build_forward(spec, "int16", store.qtables, compute, outputs)
-    elif precision == "int8":
-        params = params_int8(spec, store)
-        fwd = build_forward(spec, "int8", store.qtables8, compute, outputs)
-    else:
-        params = params_fp32(spec, store)
-        fwd = build_forward(spec, "fp32", outputs=outputs)
-    fn = jax.jit(partial(fwd, params),
-                 donate_argnums=(0,) if donate_input else ())
-    return fn, params

@@ -1,7 +1,7 @@
 """Native (C++) preprocessing library, built on demand via g++ + ctypes.
 
 The per-frame host path (uint8 HWC -> letterboxed CHW float -> int16 quant)
-must keep up with thousands of TPU fps; this module mirrors the reference's
+must keep up with thousands of device fps; this module mirrors the reference's
 C preprocessing (``linux_app/src/yolo2_image_loader.c``, ``yolo2_v4l2.c``)
 with numerics identical to yolotpu.image (same darknet float32 bilinear).
 

@@ -1,9 +1,10 @@
-"""Convolution ops: fp32 and INT16-quantized, XLA-native (NHWC/HWIO).
+"""Convolution ops: fp32 and integer-quantized, XLA-native (NHWC/HWIO).
 
 The reference computes conv on a Tm=32 x Tn=4 MAC array with the tile loops
-of ``hls/models/yolov2/yolo2_accel.cpp:127-168``; on TPU the same work is one
-``lax.conv_general_dilated`` that XLA tiles onto the 128x128 MXU — spatial
-tiling, double buffering and MAC unrolling all come from the compiler.
+of ``hls/models/yolov2/yolo2_accel.cpp:127-168``; here the same work is
+plain ``lax`` convolutions and matrix products that XLA hands to the GPU's
+libraries — spatial tiling, double buffering and MAC unrolling all come
+from the compiler.
 
 INT16 semantics (production path): exact int32 accumulation over the whole
 receptive field, then one requantization
@@ -14,13 +15,15 @@ requantizes after every 4-input-channel group (an FPGA resource artifact that
 only loses precision); the bit-exact reproduction of that behavior lives in
 ``yolotpu.golden.conv_int16_exact`` and is used as a fidelity oracle.
 
+Every integer tier accumulates s8 x s8 -> s32 products (``s8_acc``): the
+int8 tier directly, the w8a16 tier over two activation planes, the exact
+int16 tier over two activation and two weight planes (``conv_int16``).
+
 Integer leaky activation matches the hardware exactly: ``v < 0 -> v / 10``
 with C truncation toward zero (``core_compute.cpp:192-198``).
 """
 
 from __future__ import annotations
-
-import os as _os
 
 import jax
 import jax.numpy as jnp
@@ -28,14 +31,6 @@ import numpy as np
 from jax import lax
 
 DN = ("NHWC", "HWIO", "NHWC")
-
-# int8 tier: route 3x3/s1 layers through im2col + the fused Pallas matmul
-# kernel instead of XLA's s8 conv (probe-gated until measured in-program)
-_INT8_PALLAS_3X3 = _os.environ.get("YOLO2_INT8_PALLAS_3X3", "0") == "1"
-
-# w8a16 tier: same probe gate for its 3x3 layers (18 B/elem patch reads
-# vs MXU-dense dots — the in-program bisection decides per layer class)
-_W8A16_PALLAS_3X3 = _os.environ.get("YOLO2_W8A16_PALLAS_3X3", "0") == "1"
 
 # int16 conv compute implementations
 COMPUTE_MODES = ("int32", "f32", "f32_highest")
@@ -57,9 +52,10 @@ def conv_fp32(x: jnp.ndarray, w: jnp.ndarray, b: jnp.ndarray, stride: int,
               precision=lax.Precision.HIGHEST) -> jnp.ndarray:
     """fp32 conv + bias + activation. x (B,H,W,Cin) f32, w (k,k,Cin,Cout).
 
-    Default precision is HIGHEST: on TPU the DEFAULT precision computes f32
-    convs with bf16-rounded products (rel err ~2^-9), which is not an
-    acceptable accuracy oracle. Pass precision=None for the fast path.
+    Default precision is HIGHEST: true fp32 products. The GPU's DEFAULT
+    precision may run f32 convs as TF32 (10-bit mantissa products), which
+    is not an acceptable accuracy oracle. Pass precision=None for the fast
+    path.
     """
     xp, p = pad_same_darknet(x, w.shape[0], stride, pad, 0.0)
     out = lax.conv_general_dilated(xp, w, (stride, stride), p,
@@ -142,6 +138,88 @@ def leaky_int16(v: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(v < 0, neg, v)
 
 
+def _requant(acc: jnp.ndarray, bias_shifted, shift_out, activation: str,
+             lo: int, hi: int) -> jnp.ndarray:
+    """One requantization: round-half-up shift (static or per-channel),
+    pre-shifted bias, saturation to [lo, hi], integer leaky. int32 out."""
+    rs = (round_shift if isinstance(shift_out, (int, np.integer))
+          else round_shift_vec)
+    v = jnp.clip(rs(acc, shift_out) + bias_shifted, lo, hi)
+    if activation == "leaky":
+        v = jnp.clip(leaky_int16(v), lo, hi)
+    elif activation != "linear":
+        raise NotImplementedError(f"integer activation {activation}")
+    return v
+
+
+def _im2col(xp: jnp.ndarray, kh: int, kw: int, stride: int) -> jnp.ndarray:
+    """(B,H,W,C) padded -> (B,Ho,Wo,kh*kw*C), tap-major like an HWIO
+    weight reshaped to (kh*kw*C, N)."""
+    b, h, w, c = xp.shape
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    taps = [xp[:, dy:dy + (ho - 1) * stride + 1:stride,
+               dx:dx + (wo - 1) * stride + 1:stride, :]
+            for dy in range(kh) for dx in range(kw)]
+    return jnp.concatenate(taps, axis=-1)
+
+
+def s8_acc(xp: jnp.ndarray, w: jnp.ndarray, stride: int) -> jnp.ndarray:
+    """Exact s8 x s8 -> s32 VALID convolution of an already-padded NHWC
+    input with HWIO weights, as one im2col matrix product (the GPU's
+    integer GEMM; cuDNN takes no s8 convolution with s32 output).
+    Input channels are zero-padded to a multiple of 4, the integer GEMM's
+    granularity; zero weights make the pad contribute nothing whatever the
+    activation value."""
+    kh, kw, c, n = w.shape
+    if c % 4:
+        cp = 4 - c % 4
+        xp = jnp.pad(xp, ((0, 0), (0, 0), (0, 0), (0, cp)))
+        w = jnp.pad(w, ((0, 0), (0, 0), (0, cp), (0, 0)))
+        c += cp
+    cols = _im2col(xp, kh, kw, stride)
+    b_, h_, w_, k_ = cols.shape
+    return jnp.dot(cols.reshape(-1, k_), w.reshape(k_, n),
+                   preferred_element_type=jnp.int32).reshape(b_, h_, w_, n)
+
+
+def split16(v: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """int16 -> (hi, lo) s8 planes with v == 256*hi + lo + 128: hi = v >> 8,
+    lo = (v & 255) - 128. An int16 zero (SAME padding) encodes as
+    (0, -128)."""
+    return ((v >> 8).astype(jnp.int8),
+            (jnp.bitwise_and(v, 255) - 128).astype(jnp.int8))
+
+
+def prep_weights_int16(w) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """int16 HWIO weights -> the exact-int16 conv's weight planes
+    ``(wp, cw)``: wp = [wh | wl | 1] (kh, kw, C, 2N+1) s8 with
+    w == 256*wh + wl + 128 (``split16``) and an all-ones column, and
+    cw = 128 * sum_taps(w) per output channel (int32, wraparound)."""
+    w = jnp.asarray(w)
+    wh, wl = split16(w)
+    wp = jnp.concatenate([wh, wl, jnp.ones(w.shape[:3] + (1,), jnp.int8)],
+                         axis=3)
+    return wp, 128 * jnp.sum(w.astype(jnp.int32), axis=(0, 1, 2))
+
+
+def _acc_int16(xp: jnp.ndarray, wp: jnp.ndarray, cw: jnp.ndarray,
+               stride: int) -> jnp.ndarray:
+    """Exact int16 x int16 -> int32 (wraparound) VALID conv accumulation
+    from s8 planes. x == 256*xh + xl + 128 and w == 256*wh + wl + 128, so
+        sum x*w = 65536 A(xh,wh) + 256 (A(xh,wl) + A(xl,wh)) + A(xl,wl)
+                  + 128 (256 S(xh) + S(xl)) + 128 sum w
+    with A the s8 accumulation and S(.) the receptive-field sum (the
+    all-ones column of ``wp``). Every term wraps mod 2^32 like an s16
+    accumulation would; s8 partials fit int32 (128*128*K < 2^31)."""
+    n = cw.shape[0]
+    xh, xl = split16(xp)
+    ah = s8_acc(xh, wp, stride)
+    al = s8_acc(xl, wp, stride)
+    return ((ah[..., :n] << 16) + ((ah[..., n:2 * n] + al[..., :n]) << 8)
+            + al[..., n:2 * n]
+            + 128 * ((ah[..., 2 * n:] << 8) + al[..., 2 * n:]) + cw)
+
+
 def conv_int16(x: jnp.ndarray, w: jnp.ndarray, bias_shifted: jnp.ndarray,
                stride: int, pad: int, activation: str, shift_out: int,
                compute: str = "int32") -> jnp.ndarray:
@@ -149,449 +227,91 @@ def conv_int16(x: jnp.ndarray, w: jnp.ndarray, bias_shifted: jnp.ndarray,
     bias_shifted (Cout,) int32 already in the Qa_out domain.
 
     compute:
-      - "int32":       int16 x int16 -> int32 conv on the MXU (exact)
-      - "f32":         cast to f32, default TPU precision (fastest, products
-                       rounded to ~bf16; error well under one Q step after
-                       the output shift for typical shifts)
-      - "f32_highest": 6-pass f32 (exact products, f32 accumulation)
+      - "int32":       exact int32 accumulation (bit-exact vs golden); the
+                       weight planes are split in-graph on every call, so
+                       a Cout-sharded ``w`` gives Cout-sharded planes
+      - "f32":         cast to f32 at the backend's default precision
+                       (TF32 on the GPU): approximate
+      - "f32_highest": f32 with exact products, f32 accumulation:
+                       approximate once sums pass 2^24
     Returns int16 activations.
     """
-    xp, p = pad_same_darknet(x, w.shape[0], stride, pad, jnp.int16(0))
+    xp, _ = pad_same_darknet(x, w.shape[0], stride, pad, jnp.int16(0))
     if compute == "int32":
-        if w.shape[0] == 1 and w.shape[1] == 1 and stride == 1:
-            # 1x1 conv as reshape+dot: XLA's int16 *convolution* lowering is
-            # pathologically slow at small kernels (5.97 ms vs <0.05 ms for
-            # 64x52x52x256->128 on v5e), while its int16 dot is fast.
-            b_, h_, w_, c_ = xp.shape
-            acc = jnp.dot(xp.reshape(-1, c_), w.reshape(c_, -1),
-                          preferred_element_type=jnp.int32)
-            acc = acc.reshape(b_, h_, w_, -1)
-        else:
-            acc = lax.conv_general_dilated(xp, w, (stride, stride), p,
-                                           dimension_numbers=DN,
-                                           preferred_element_type=jnp.int32)
+        acc = _acc_int16(xp, *prep_weights_int16(w), stride)
     elif compute in ("f32", "f32_highest"):
         prec = (lax.Precision.HIGHEST if compute == "f32_highest" else None)
         accf = lax.conv_general_dilated(xp.astype(jnp.float32),
                                         w.astype(jnp.float32),
-                                        (stride, stride), p,
+                                        (stride, stride), "VALID",
                                         dimension_numbers=DN,
                                         precision=prec,
                                         preferred_element_type=jnp.float32)
-        # round to nearest int (ties away from zero is irrelevant here: the
-        # exact accumulator is integral, so accf is within rounding noise of
-        # an integer and plain rounding recovers it)
         acc = jnp.round(accf).astype(jnp.int32)
     else:
         raise ValueError(f"compute mode {compute!r}")
-    v = sat16(round_shift(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"int16 activation {activation}")
-    return v.astype(jnp.int16)
-
-
-def conv_int16_nchw(x: jnp.ndarray, w: jnp.ndarray,
-                    bias_shifted: jnp.ndarray, stride: int, pad: int,
-                    activation: str, shift_out: int) -> jnp.ndarray:
-    """Entry-conv variant consuming a DENSE NCHW int16 image.
-
-    A materialized (B, H, W, 3) int16 tensor is physically ~42x padded on
-    TPU (the 3-wide minor dim tiles to 128 lanes), so the NHWC entry pays
-    gigabytes of phantom traffic writing/reading the quantized image. In
-    NCHW the minor dims are (H, W) — dense — and the conv reads it
-    directly, emitting NHWC for the rest of the graph. Bit-identical to
-    conv_int16 (same int32 accumulation and requant chain)."""
-    if pad:
-        x = jnp.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)))
-    acc = lax.conv_general_dilated(
-        x, w, (stride, stride), "VALID",
-        dimension_numbers=("NCHW", "HWIO", "NHWC"),
-        preferred_element_type=jnp.int32)
-    v = sat16(round_shift(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"int16 activation {activation}")
-    return v.astype(jnp.int16)
-
-
-def make_entry_sd_weights(w_hwio, N: int):
-    """(3,3,C,N) int16 -> (4,4,C,4N) weights for conv_pool_entry_sd.
-
-    Output-channel group g = oy*2 + ox holds the 3x3 kernel shifted to
-    window offset (oy, ox): the 4x4/stride-2 conv then computes all four
-    pool-window members of the following 2x2/s2 maxpool in one pass
-    (reference runs them as two engine launches,
-    yolo2_accel.cpp:127-168 conv + core_compute.cpp:266-305 pool)."""
-    import numpy as np
-    kh, kw, C, n = w_hwio.shape
-    assert (kh, kw) == (3, 3) and n == N
-    w4 = np.zeros((4, 4, C, 4 * N), w_hwio.dtype)
-    for oy in range(2):
-        for ox in range(2):
-            g = oy * 2 + ox
-            w4[oy:oy + 3, ox:ox + 3, :, g * N:(g + 1) * N] = w_hwio
-    return w4
-
-
-def conv_pool_entry_sd(x_nchw: jnp.ndarray, w4: jnp.ndarray,
-                       bias_shifted: jnp.ndarray, shift_out: int,
-                       activation: str) -> jnp.ndarray:
-    """Fused entry conv3x3/s1 + darknet maxpool2x2/s2, pure XLA.
-
-    The 416²x32 conv output (the entry stage's dominant HBM cost — written
-    once, read again by the pool: ~3.2 GB/step at b128) never materializes:
-    a single 4x4/stride-2 conv computes each pool window's four conv values
-    as output-channel groups (see make_entry_sd_weights) and the group-max
-    folds into the conv's fused epilogue. Max commutes with the monotone
-    requant chain (round_shift, +bias, sat16, integer leaky), so taking it
-    on the raw int32 accumulator is bit-identical to pool-after-requant.
-
-    x_nchw (B, C, H, W) int16 DENSE (minor dims spatial — a (.., 3)-channel
-    NHWC int16 tensor is physically ~42x lane-padded on TPU). H, W even.
-    Returns (B, H//2, W//2, N) int16 NHWC.
-    """
-    N4 = w4.shape[3]
-    # conv SAME pad 1 + 4x4 window anchored at (2i-1, 2j-1): rows/cols
-    # -1..H, i.e. pad (1, 2) each spatial side
-    xp = jnp.pad(x_nchw, ((0, 0), (0, 0), (1, 2), (1, 2)))
-    acc = lax.conv_general_dilated(
-        xp, w4, (2, 2), "VALID",
-        dimension_numbers=("NCHW", "HWIO", "NHWC"),
-        preferred_element_type=jnp.int32)
-    b_, ho, wo, _ = acc.shape
-    acc = jnp.max(acc.reshape(b_, ho, wo, 4, N4 // 4), axis=3)
-    v = sat16(round_shift(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"int16 activation {activation}")
-    return v.astype(jnp.int16)
-
-
-def conv_pool_sd(x_nhwc: jnp.ndarray, w4: jnp.ndarray,
-                 bias_shifted: jnp.ndarray, shift_out: int,
-                 activation: str) -> jnp.ndarray:
-    """conv_pool_entry_sd generalized to mid-stage layers (C >= 8): fused
-    conv3x3/s1 + darknet maxpool2x2/s2 as ONE XLA 4x4/s2 conv over the
-    NHWC int16 activation (no NCHW transpose — wide-C activations are
-    lane-dense already). Same bit-exact identity: the pool-window group-max
-    is taken on the raw int32 accumulator, which commutes with the
-    monotone requant chain.
-
-    Trades 16/9 the MACs for never writing the full-resolution conv
-    output to HBM (at 208²x64 b128 that intermediate is 708 MB written +
-    read again by the pool). Matches the reference's fused
-    conv-then-pool engine concept (hls/core/core_compute.cpp:266-305,
-    core_scheduler.cpp:63-87) — VERDICT r4 #1.
-
-    x_nhwc (B, H, W, C) int16, H, W even. Returns (B, H//2, W//2, N).
-    """
-    N4 = w4.shape[3]
-    xp = jnp.pad(x_nhwc, ((0, 0), (1, 2), (1, 2), (0, 0)))
-    acc = lax.conv_general_dilated(
-        xp, w4, (2, 2), "VALID",
-        dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        preferred_element_type=jnp.int32)
-    b_, ho, wo, _ = acc.shape
-    acc = jnp.max(acc.reshape(b_, ho, wo, 4, N4 // 4), axis=3)
-    v = sat16(round_shift(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"int16 activation {activation}")
-    return v.astype(jnp.int16)
-
-
-def make_entry_s2d_weights(w_hwio, N: int):
-    """(3,3,C,N) int16 -> (2,2,4C,4N) weights for conv_pool_entry_s2d.
-
-    Same accumulation as make_entry_sd_weights, re-indexed for a
-    space-to-depth(2) input: the 4x4/s2 window becomes a 2x2/s1 window
-    over 2x2 blocks once the conv anchor is block-aligned (the forward
-    pads one row/col of zeros top-left first). s2d channel order is
-    (dy*2+dx)*C + c — block position major."""
-    import numpy as np
-    w4 = make_entry_sd_weights(w_hwio, N)          # (4,4,C,4N)
-    C = w_hwio.shape[2]
-    w2 = np.zeros((2, 2, 4 * C, 4 * N), w_hwio.dtype)
-    for ky in range(4):
-        for kx in range(4):
-            dy, dx = ky % 2, kx % 2
-            w2[ky // 2, kx // 2, (dy * 2 + dx) * C:(dy * 2 + dx + 1) * C, :] \
-                = w4[ky, kx, :, :]
-    return w2
-
-
-def conv_pool_entry_s2d(x_nchw: jnp.ndarray, w2: jnp.ndarray,
-                        bias_shifted: jnp.ndarray, shift_out: int,
-                        activation: str) -> jnp.ndarray:
-    """Fused entry conv3x3/s1 + darknet maxpool2x2/s2 over a
-    space-to-depth(2) input, pure XLA.
-
-    Identical int32 accumulation to conv_pool_entry_sd (sums reordered;
-    int32 wraparound addition commutes), but the conv the MXU sees is
-    2x2/s1 over 4C channels instead of 4x4/s2 over C: K stays 16*C while
-    the stride-2 overlapping-window geometry — the part XLA tiles poorly
-    for C=3 (measured 2.7 useful TOPS, reports/ r4 bundle) — disappears.
-
-    x_nchw (B, C, H, W) int16 DENSE, H, W even. Returns
-    (B, H//2, W//2, N) int16 NHWC.
-    """
-    b, c, h, w = x_nchw.shape
-    n4 = w2.shape[3]
-    # pad 1 top/left aligns every 4x4/s2 window (anchored at 2i-1) to the
-    # 2x2 block grid; 1 bottom/right completes the last block
-    xp = jnp.pad(x_nchw, ((0, 0), (0, 0), (1, 1), (1, 1)))
-    hb, wb = (h + 2) // 2, (w + 2) // 2
-    xs = xp.reshape(b, c, hb, 2, wb, 2)
-    xs = jnp.transpose(xs, (0, 3, 5, 1, 2, 4)).reshape(b, 4 * c, hb, wb)
-    acc = lax.conv_general_dilated(
-        xs, w2, (1, 1), "VALID",
-        dimension_numbers=("NCHW", "HWIO", "NHWC"),
-        preferred_element_type=jnp.int32)          # (B, hb-1, wb-1, 4N)
-    acc = acc[:, :h // 2, :w // 2, :]
-    b_, ho, wo, _ = acc.shape
-    acc = jnp.max(acc.reshape(b_, ho, wo, 4, n4 // 4), axis=3)
-    v = sat16(round_shift(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"int16 activation {activation}")
-    return v.astype(jnp.int16)
-
-
-def split_weights_dec8(w) -> tuple | None:
-    """Balanced s8 plane split of an int16 HWIO weight tensor for the dec8
-    XLA engine: w == 256*wh + wl with wh, wl both s8, plus the activation
-    lo-plane offset correction cw = 128 * sum_taps(w) (int32, wraparound).
-
-    Returns (wh, wl, cw) as numpy arrays, or None when any |w| > 32639
-    (wh would overflow s8) — caller keeps that layer on the int32 engine.
-    """
-    import numpy as np
-    w = np.asarray(w)
-    if int(w.max(initial=0)) > 32639:
-        return None
-    wh = (w.astype(np.int32) + 128) >> 8
-    wl = w.astype(np.int32) - (wh << 8)
-    cw = (128 * w.astype(np.int64).sum(axis=(0, 1, 2))) & 0xFFFFFFFF
-    cw = cw.astype(np.uint32).view(np.int32)
-    return wh.astype(np.int8), wl.astype(np.int8), cw
-
-
-def conv_int16_dec8(x, wh: jnp.ndarray, wl: jnp.ndarray,
-                    cw: jnp.ndarray, bias_shifted: jnp.ndarray, stride: int,
-                    pad: int, activation: str, shift_out: int,
-                    out_planes: bool = False):
-    """Exact s16 conv as THREE int8 convs on the MXU fast path (the dec2
-    split the Pallas q16 kernels use, expressed in XLA for the large-spatial
-    layers where per-layer kernel glue loses; see pallas_q16.py header).
-
-    x = 256*xh + (xl - 128) + 128 with xh = x >> 8, xl = (x & 255) - 128
-    (both s8; zero padding encodes as (0, -128), restored by the per-tap
-    +128 folded into ``cw``), w = 256*wh + wl (balanced, split at param
-    build). Then, all mod 2^32 — identical to the int32 engine's
-    wraparound contract:
-        acc = (A(xh,wh) << 16) + (A(xh,wl) + A(xl,wh) << 8) + A(xl,wl) + cw
-    The weight planes concatenate on the OUTPUT-channel dim, so each
-    activation plane is convolved ONCE against [wh | wl] — two s8 convs
-    total with zero extra activation traffic (an earlier variant fused the
-    mixed products via a 2C input concat instead: materializing that
-    doubled activation tensor measured 112 ms e2e vs 79 for int32).
-    int8 conv partials fit int32 exactly (127*127*18*C < 2^31, C <= 4096).
-    """
-    if isinstance(x, tuple):
-        # (hi, lo) s8 planes straight from a Pallas kernel (same encoding:
-        # hi = x >> 8, lo = (x & 255) - 128) — skip recombine + re-split
-        xh, xl = x
-        if pad:
-            pp = ((0, 0), (pad, pad), (pad, pad), (0, 0))
-            xh = jnp.pad(xh, pp)
-            xl = jnp.pad(xl, pp, constant_values=-128)
-        p = "VALID"
-    else:
-        xp, p = pad_same_darknet(x, wh.shape[0], stride, pad, jnp.int16(0))
-        xh = (xp >> 8).astype(jnp.int8)
-        xl = (jnp.bitwise_and(xp, 255) - 128).astype(jnp.int8)
-    n = wh.shape[3]
-    wcat = jnp.concatenate([wh, wl], axis=3)          # (kh, kw, C, 2N)
-    ah = lax.conv_general_dilated(xh, wcat, (stride, stride), p,
-                                  dimension_numbers=DN,
-                                  preferred_element_type=jnp.int32)
-    al = lax.conv_general_dilated(xl, wcat, (stride, stride), p,
-                                  dimension_numbers=DN,
-                                  preferred_element_type=jnp.int32)
-    acc = ((ah[..., :n] << 16) + ((ah[..., n:] + al[..., :n]) << 8)
-           + al[..., n:] + cw)
-    v = sat16(round_shift(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"int16 activation {activation}")
-    v = v.astype(jnp.int16)
-    if out_planes:
-        return (v >> 8).astype(jnp.int8), \
-            ((v & 0xFF) - 128).astype(jnp.int8)
-    return v
+    return _requant(acc, bias_shifted, shift_out, activation,
+                    -32768, 32767).astype(jnp.int16)
 
 
 def prep_weights_w8a16(w8: "np.ndarray") -> "np.ndarray":
     """Activation lo-plane offset correction for the w8a16 engine:
-    cw = 128 * sum_taps(w8) per output channel (int32, wraparound) — the
-    single-weight-plane analog of split_weights_dec8's cw."""
+    cw = 128 * sum_taps(w8) per output channel (int32, wraparound)."""
     cw = (128 * np.asarray(w8).astype(np.int64).sum(axis=(0, 1, 2)))
     return (cw & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
 def conv_w8a16(x: jnp.ndarray, w8: jnp.ndarray, cw: jnp.ndarray,
                bias_shifted: jnp.ndarray, stride: int, pad: int,
-               activation: str, shift_out,
-               use_pallas: bool = False) -> jnp.ndarray:
+               activation: str, shift_out) -> jnp.ndarray:
     """w8a16 tier conv: int16 activations x int8 per-channel weights as ONE
-    s8xs8 MXU conv over batch-concatenated (hi, lo) activation planes.
-
-    x = 256*xh + (xl + 128) with xh = x >> 8, xl = (x & 255) - 128 (both
-    s8; an int16 zero — including SAME padding — encodes as (0, -128),
-    restored by the per-tap +128 folded into ``cw``). Both planes convolve
-    the SAME weight tensor, so they stack on the BATCH dim (one conv
-    dispatch, 2B batch — no weight re-streaming, no output-channel concat):
+    s8 x s8 accumulation over batch-concatenated (hi, lo) activation planes
+    (``split16``; the per-tap +128 of the lo plane is folded into ``cw``):
         acc = (A(xh, w8) << 8) + A(xl, w8) + cw        (mod 2^32)
     The true accumulation fits int32 (quantize_weights_w8a16 caps the
     requant shift exactly like the int16 tier's Qw cap), so the wraparound
-    reconstruction is exact — the same contract conv_int16_dec8 proves for
-    the exact-s16 engine. Half dec8's MXU work (2 conv-units vs 4) because
-    8-bit weights need no hi/lo weight planes; the cost is ~1 weight LSB,
-    repaid by per-channel scales (quant.quantize_weights_w8a16).
+    reconstruction is exact. Half the int16 tier's s8 work because 8-bit
+    weights need no hi/lo weight planes; the cost is ~1 weight LSB, repaid
+    by per-channel scales (quant.quantize_weights_w8a16).
 
     ``shift_out``: int or per-output-channel (N,) vector.
     """
-    rs = (round_shift if isinstance(shift_out, (int, np.integer))
-          else round_shift_vec)
-    xp, p = pad_same_darknet(x, w8.shape[0], stride, pad, jnp.int16(0))
-    if (use_pallas and w8.shape[0] == 1 and w8.shape[1] == 1 and stride == 1
-            and x.shape[-1] % 128 == 0 and w8.shape[3] % 128 == 0
-            and activation in ("leaky", "linear")):
-        # 1x1: the fused Pallas matmul (two s8 dots per streamed weight
-        # tile, requant in VMEM — the w8a16 analog of matmul_int8_requant)
-        from .pallas_matmul import matmul_w8a16_requant
-        b_, h_, w_, c_ = xp.shape
-        f_ = w8.shape[3]
-        v = matmul_w8a16_requant(xp.reshape(-1, c_), w8.reshape(c_, f_),
-                                 cw, bias_shifted, shift_out,
-                                 leaky=(activation == "leaky"))
-        return v.reshape(b_, h_, w_, f_)
-    if (use_pallas and _W8A16_PALLAS_3X3
-            and w8.shape[0] == 3 and w8.shape[1] == 3 and stride == 1
-            and pad == 1 and x.shape[-1] % 128 == 0
-            and w8.shape[3] % 128 == 0
-            and activation in ("leaky", "linear")):
-        # 3x3 via XLA-built im2col + the fused w8a16 matmul kernel. cw is
-        # tap-summed already (prep_weights_w8a16 sums over kh,kw,C), so the
-        # (M, 9C) patch matmul reuses it unchanged.
-        from .pallas_matmul import matmul_w8a16_requant
-        b_, h_, w2_, c_ = x.shape
-        taps = [xp[:, dy:dy + h_, dx:dx + w2_, :]
-                for dy in range(3) for dx in range(3)]
-        pq = jnp.concatenate(taps, axis=-1)            # (B,H,W,9C) int16
-        f_ = w8.shape[3]
-        v = matmul_w8a16_requant(pq.reshape(-1, 9 * c_),
-                                 w8.reshape(9 * c_, f_), cw,
-                                 bias_shifted, shift_out,
-                                 leaky=(activation == "leaky"))
-        return v.reshape(b_, h_, w2_, f_)
-    xh = (xp >> 8).astype(jnp.int8)
-    xl = (jnp.bitwise_and(xp, 255) - 128).astype(jnp.int8)
+    xp, _ = pad_same_darknet(x, w8.shape[0], stride, pad, jnp.int16(0))
+    xh, xl = split16(xp)
     b_ = x.shape[0]
-    a = lax.conv_general_dilated(
-        jnp.concatenate([xh, xl], axis=0), w8, (stride, stride), p,
-        dimension_numbers=DN, preferred_element_type=jnp.int32)
+    a = s8_acc(jnp.concatenate([xh, xl], axis=0), w8, stride)
     acc = (a[:b_] << 8) + a[b_:] + cw
-    v = sat16(rs(acc, shift_out) + bias_shifted)
-    if activation == "leaky":
-        v = sat16(leaky_int16(v))
-    elif activation != "linear":
-        raise NotImplementedError(f"w8a16 activation {activation}")
-    return v.astype(jnp.int16)
+    return _requant(acc, bias_shifted, shift_out, activation,
+                    -32768, 32767).astype(jnp.int16)
 
 
 def conv_int8(x: jnp.ndarray, w: jnp.ndarray, bias_shifted: jnp.ndarray,
               stride: int, pad: int, activation: str, shift_out,
-              use_pallas: bool = False, head16: bool = False) -> jnp.ndarray:
-    """w8a8 turbo conv: int8 x int8 -> int32 on the MXU, one requant.
+              head16: bool = False) -> jnp.ndarray:
+    """w8a8 turbo conv: int8 x int8 -> int32, one requant.
 
     Same fixed-point structure as conv_int16 but at 8-bit scales (the int8
-    tier trades ~1 bit of activation precision for ~4x early-layer and
-    ~1.4x overall MXU throughput on v5e). 1x1 convs route to the Pallas
-    fused matmul kernel (156 TOPS measured vs ~60 for XLA's int8 dot) when
-    ``use_pallas`` and shapes allow.
+    tier trades ~1 bit of activation precision for a quarter of the int16
+    tier's s8 work).
 
     ``shift_out`` is a python int (per-layer scales) or an (N,) array
     (per-channel weight scales, quant.quantize_weights_int8 default): the
-    requant shift broadcasts over output channels in both the XLA and the
-    Pallas epilogues.
+    requant shift broadcasts over output channels.
+
+    ``head16``: detection-head epilogue — requant to int16 at an 8-bits-finer
+    scale (shift-8, bias<<8). 8-bit region logits quantize the box
+    regression away; 16-bit ones are free — the head conv is <1% of the
+    model's MACs and nothing consumes its output on-device except the
+    dequantizing region decode.
     """
-    rs = (round_shift if isinstance(shift_out, (int, np.integer))
-          else round_shift_vec)
-    xp, p = pad_same_darknet(x, w.shape[0], stride, pad, jnp.int8(0))
-    if w.shape[0] == 1 and w.shape[1] == 1 and stride == 1:
-        b_, h_, w_, c_ = xp.shape
-        f_ = w.shape[3]
-        if use_pallas and not head16 and (b_ * h_ * w_) % 512 == 0 \
-                and c_ % 128 == 0 and f_ % 128 == 0:
-            from .pallas_matmul import matmul_int8_requant
-            v = matmul_int8_requant(xp.reshape(-1, c_), w.reshape(c_, f_),
-                                    bias_shifted, shift_out,
-                                    leaky=(activation == "leaky"))
-            return v.reshape(b_, h_, w_, f_)
-        acc = jnp.dot(xp.reshape(-1, c_), w.reshape(c_, -1),
-                      preferred_element_type=jnp.int32).reshape(b_, h_, w_, -1)
-    elif (use_pallas and _INT8_PALLAS_3X3 and not head16
-          and w.shape[0] == 3 and w.shape[1] == 3 and stride == 1
-          and pad == 1 and x.shape[-1] % 128 == 0 and w.shape[3] % 128 == 0
-          and activation in ("leaky", "linear")):
-        # 3x3 via XLA-built im2col + the fused Pallas matmul kernel
-        # (VERDICT r3 #8: extend the s8 Pallas path beyond 1x1). At int8
-        # the patch buffer is 1 B/elem — 9x read amplification but
-        # MXU-dense dots; probe-gated (YOLO2_INT8_PALLAS_3X3) until the
-        # in-program bisection picks a winner per layer class.
-        from .pallas_matmul import matmul_int8_requant
-        b_, h_, w2_, c_ = x.shape
-        taps = [xp[:, dy:dy + h_, dx:dx + w2_, :]
-                for dy in range(3) for dx in range(3)]
-        pq = jnp.concatenate(taps, axis=-1)            # (B,H,W,9C)
-        f_ = w.shape[3]
-        v = matmul_int8_requant(pq.reshape(-1, 9 * c_),
-                                w.reshape(9 * c_, f_),
-                                bias_shifted, shift_out,
-                                leaky=(activation == "leaky"))
-        return v.reshape(b_, h_, w2_, f_)
-    else:
-        acc = lax.conv_general_dilated(xp, w, (stride, stride), p,
-                                       dimension_numbers=DN,
-                                       preferred_element_type=jnp.int32)
+    xp, _ = pad_same_darknet(x, w.shape[0], stride, pad, jnp.int8(0))
+    acc = s8_acc(xp, w, stride)
     if head16:
-        # detection-head epilogue: same s8 MXU conv, requant to int16 at
-        # an 8-bits-finer scale (shift-8, bias<<8). 8-bit region logits
-        # quantize the box regression away; 16-bit ones are free — the
-        # head conv is <1% of the model's MACs and nothing consumes its
-        # output on-device except the dequantizing region decode
-        v = jnp.clip(rs(acc, shift_out - 8)
-                     + (bias_shifted.astype(jnp.int32) << 8),
-                     -32768, 32767)
-        if activation == "leaky":
-            v = jnp.clip(leaky_int16(v), -32768, 32767)
-        elif activation != "linear":
-            raise NotImplementedError(f"int8 activation {activation}")
-        return v.astype(jnp.int16)
-    v = jnp.clip(rs(acc, shift_out) + bias_shifted, -128, 127)
-    if activation == "leaky":
-        v = jnp.clip(leaky_int16(v), -128, 127)
-    elif activation != "linear":
-        raise NotImplementedError(f"int8 activation {activation}")
-    return v.astype(jnp.int8)
+        return _requant(acc, bias_shifted.astype(jnp.int32) << 8,
+                        shift_out - 8, activation,
+                        -32768, 32767).astype(jnp.int16)
+    return _requant(acc, bias_shifted, shift_out, activation,
+                    -128, 127).astype(jnp.int8)
 
 
 def quantize_input_int8(x: jnp.ndarray, q: int) -> jnp.ndarray:

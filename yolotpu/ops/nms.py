@@ -1,7 +1,7 @@
 """On-device class-wise NMS with fixed shapes.
 
 The reference suppresses on the CPU after reading back the whole region
-tensor (``src/core/yolo_post.cpp:54-85``). On TPU the decode + suppression
+tensor (``src/core/yolo_post.cpp:54-85``). Here the decode + suppression
 run inside the jitted program and only a fixed-size top-K table leaves the
 device — per frame a few KB instead of the 287 KB head tensor.
 

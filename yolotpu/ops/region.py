@@ -2,7 +2,7 @@
 
 Equivalent to ``forward_region_layer`` + ``get_region_box``
 (``src/core/yolo_region.cpp:18-26,123-141``) but vectorized over the whole
-grid so the TPU emits only small fixed-size tensors per frame:
+grid so the device emits only small fixed-size tensors per frame:
 
     boxes  (B, h*w*n, 4)   center-format, relative to the network input
     obj    (B, h*w*n)      objectness (post-sigmoid)

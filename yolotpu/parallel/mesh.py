@@ -1,8 +1,8 @@
 """Device mesh + sharding policies for multi-chip inference/training.
 
 The reference's only parallelism is a 32x4 MAC array and AXI DMA double
-buffering (SURVEY §2 parallelism table); a TPU pod's axes are different in
-kind. This module maps the framework onto a 2-D ``(dp, tp)`` mesh:
+buffering (SURVEY §2 parallelism table); a multi-GPU host's axes are
+different in kind. This module maps the framework onto a 2-D ``(dp, tp)`` mesh:
 
 - ``dp`` (data parallel): the batch dimension — inference streams shard
   frames across chips; collectives-free until the host gathers detections.
@@ -13,8 +13,7 @@ kind. This module maps the framework onto a 2-D ``(dp, tp)`` mesh:
   YOLOv2 (97 MiB int16) it exists to prove the plumbing at framework scale.
 
 Shardings are expressed as `jax.sharding.NamedSharding` on the param/batch
-pytrees and propagated by GSPMD — no hand-written collectives on the XLA
-path (Pallas ring kernels are a separate, explicit opt-in).
+pytrees and propagated by GSPMD — no hand-written collectives.
 """
 
 from __future__ import annotations
@@ -42,26 +41,19 @@ def make_mesh(n_devices: int | None = None,
 
 
 def param_shardings(params: dict, mesh: Mesh) -> dict:
-    """Shard conv weights on Cout over tp; biases likewise; replicate over dp.
-
-    Weight layout is HWIO so Cout is axis 3 (fp32/int16 alike). Layers whose
+    """Shard each layer's arrays on Cout, their last axis (HWIO weights,
+    biases, the w8a16 correction), over tp; replicate over dp. Layers whose
     Cout is not divisible by the tp extent (e.g. the 425-channel head conv)
     stay replicated.
     """
     tp = mesh.shape["tp"]
     out = {}
     for name, p in params.items():
-        cout = p["w"].shape[3]
-        if tp > 1 and cout % tp == 0:
-            out[name] = {
-                "w": NamedSharding(mesh, P(None, None, None, "tp")),
-                "b": NamedSharding(mesh, P("tp")),
-            }
-        else:
-            out[name] = {
-                "w": NamedSharding(mesh, P()),
-                "b": NamedSharding(mesh, P()),
-            }
+        shard = tp > 1 and p["w"].shape[3] % tp == 0
+        out[name] = {
+            k: NamedSharding(mesh, P(*([None] * (v.ndim - 1)), "tp")
+                             if shard else P())
+            for k, v in p.items()}
     return out
 
 

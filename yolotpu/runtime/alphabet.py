@@ -8,7 +8,8 @@ the frame above the box (``src/core/yolo_post.cpp:248-307``,
 ``yolo_image.cpp:207-221`` load_alphabet).
 
 No PNG data ships with this package: glyphs are synthesized once per
-process with PIL's built-in bitmap font scaled to each tier — same
+process with PIL's built-in bitmap font scaled to each tier (so this
+module, unlike the rest of the drawing path, needs PIL) — same
 white-on-black intensity convention as the reference's PNGs, so the
 compositing math is identical even though the typeface differs.
 """

@@ -7,8 +7,8 @@ the 32 per-layer launches collapse into one jitted XLA program and the DDR
 ping-pong arena disappears into XLA buffer assignment.
 
 Backends:
-  "xla"    — the TPU path (fp32 / int16 / int8; int16 compute mode
-             selectable; optional on-device NMS and letterbox)
+  "xla"    — the device path (fp32 / int16 / int8 / w8a16; int16 compute
+             mode selectable; optional on-device NMS and letterbox)
   "golden" — the numpy oracle (the "host simulation" analog; also the
              bit-exact reference-semantics mode via compute="exact")
 """
@@ -63,22 +63,18 @@ class Engine:
             outputs = (("head", "detections") if self.device_nms
                        else ("head",))
             import jax
-            from functools import partial
             if precision == "int16":
-                params = (m.params_q16(spec, store) if compute == "pallas"
-                          else m.params_int16(spec, store))
+                params = m.params_int16(spec, store)
                 fwd = m.build_forward(spec, "int16", store.qtables, compute,
                                       outputs, thresh=thresh,
                                       nms_thresh=nms, topk=topk)
             elif precision == "int8":
-                params = m.params_int8(spec, store,
-                                       pallas=(compute == "pallas"))
+                params = m.params_int8(spec, store)
                 fwd = m.build_forward(spec, "int8", store.qtables8, compute,
                                       outputs, thresh=thresh,
                                       nms_thresh=nms, topk=topk)
             elif precision == "w8a16":
-                params = m.params_w8a16(spec, store,
-                                        pallas=(compute == "pallas"))
+                params = m.params_w8a16(spec, store)
                 fwd = m.build_forward(spec, "w8a16", store.qtables_w8,
                                       compute, outputs, thresh=thresh,
                                       nms_thresh=nms, topk=topk)
@@ -87,8 +83,11 @@ class Engine:
                 fwd = m.build_forward(spec, "fp32", outputs=outputs,
                                       thresh=thresh, nms_thresh=nms,
                                       topk=topk)
+            # params are jit ARGUMENTS, not closed-over constants: the
+            # program (and its compile-cache entry) stays weight-free
             self._fwd, self._params = fwd, params
-            self._fn = jax.jit(partial(fwd, params))
+            self._jit = jax.jit(fwd)
+            self._fn = lambda x: self._jit(self._params, x)
             self._lbox_fns: dict = {}
             if warmup:
                 # compile now (at the batch the runtime will use) so the
@@ -98,8 +97,7 @@ class Engine:
                 import jax.numpy as jnp
                 z = jnp.zeros((warmup_batch, spec.net.height, spec.net.width,
                                spec.net.channels), jnp.float32)
-                out = self._fn(z)
-                _ = float(jnp.sum(out["head"]))
+                jax.block_until_ready(self._fn(z))
             ylog.debug(f"engine: forward built in {time.time() - t0:.1f}s")
         elif backend == "golden":
             self._golden = GoldenNet(spec)
@@ -107,10 +105,15 @@ class Engine:
             raise ValueError(f"backend {backend!r} (use 'xla' or 'golden')")
 
     # Max abandoned (timed-out, still-parked) watchdog threads before the
-    # engine fails fast instead of dispatching again: a flapping device
-    # link must not stack daemon threads silently (VERDICT r4 weak #8).
+    # engine fails fast instead of dispatching again: a wedged device must
+    # not stack daemon threads silently.
     WATCHDOG_MAX_ABANDONED = int(os.environ.get(
         "YOLO2_WATCHDOG_MAX_ABANDONED", "4"))
+
+    def compile(self, x):
+        """The compiled main program for input ``x`` (e.g. to read its
+        ``memory_analysis()``); xla backend only."""
+        return self._jit.lower(self._params, x).compile()
 
     # ------------------------------------------------------------------
     def _guarded(self, fn, *args, tag: str = "main"):
@@ -143,7 +146,7 @@ class Engine:
                 f"watchdog: {len(self._abandoned_threads)} abandoned device "
                 "calls still parked (cap "
                 f"{self.WATCHDOG_MAX_ABANDONED}); refusing to dispatch — "
-                "the device link looks wedged, restart the engine")
+                "the device looks wedged, restart the engine")
 
         def dispatch():
             """Run fn on a DAEMON thread so a genuinely hung device call
@@ -177,10 +180,10 @@ class Engine:
             # driver's timeout path (clear START, decode status, resume —
             # yolo2_accel_linux.c:350-377): re-dispatch the step ONCE on a
             # fresh daemon thread with a fresh deadline. A transient
-            # device-queue stall (e.g. a tunnel hiccup) clears; a truly
-            # hung program times out again and raises. The stuck worker is
-            # a daemon thread — it cannot block exit; its result (if it
-            # ever finishes) is discarded.
+            # device-queue stall clears; a truly hung program times out
+            # again and raises. The stuck worker is a daemon thread — it
+            # cannot block exit; its result (if it ever finishes) is
+            # discarded.
             ylog.info("watchdog: inference exceeded "
                       f"{ms:.0f} ms; attempting one re-dispatch "
                       "(yolo2_accel_linux.c:350-377 analog)")
@@ -249,7 +252,6 @@ class Engine:
             return {i: np.asarray(a) for i, a in acts.items()}
         import jax
         import jax.numpy as jnp
-        from functools import partial
         if not hasattr(self, "_dbg_fn"):
             from ..models import yolov2 as m
             qt = (self.store.qtables if self.precision == "int16"
@@ -258,7 +260,8 @@ class Engine:
                   else None)
             fwd = m.build_forward(self.spec, self.precision, qt,
                                   self.compute, outputs=("acts",))
-            self._dbg_fn = jax.jit(partial(fwd, self._params))
+            dbg = jax.jit(fwd)
+            self._dbg_fn = lambda x: dbg(self._params, x)
         x = jnp.asarray(boxed_chw.transpose(1, 2, 0)[None])
         out = self._guarded(
             lambda v: {k: np.asarray(a) for k, a in
@@ -288,8 +291,8 @@ class Engine:
 
     def predict_batch_rgb(self, frames_nhwc_u8: np.ndarray) -> np.ndarray:
         """Batched inference on net-sized uint8 RGB frames: the /255
-        normalization runs on device, so the host->HBM transfer is uint8
-        (4x smaller — decisive when the link is thin)."""
+        normalization runs on device, so the host->device transfer is uint8
+        (4x smaller)."""
         if self.backend != "xla":
             boxed = frames_nhwc_u8.astype(np.float32).transpose(0, 3, 1, 2) / 255.0
             return self.predict_batch(boxed)
@@ -314,11 +317,12 @@ class Engine:
         if fn is None:
             net_w, net_h = self.spec.net.width, self.spec.net.height
 
-            def full(frames):
+            def full(params, frames):
                 boxed = device_letterbox(frames, net_w, net_h)
-                return self._fwd(self._params, boxed)
-            fn = jax.jit(full)
-            self._lbox_fns[key] = fn
+                return self._fwd(params, boxed)
+            jitted = jax.jit(full)
+            fn = self._lbox_fns[key] = (
+                lambda v: jitted(self._params, v))
         out = self._guarded(
             lambda v: {k: np.asarray(o) for k, o in fn(v).items()},
             jnp.asarray(np.ascontiguousarray(frames_nhwc_u8)))
@@ -330,7 +334,7 @@ class Engine:
 
     def predict_batch_detections(self, frames) -> tuple:
         """Batched device decode+NMS (engine built with device_nms=True):
-        only the fixed top-K tables leave the chip — KBs per batch.
+        only the fixed top-K tables leave the device — KBs per batch.
         frames: (N,H,W,3) uint8 or (N,3,H,W) f32."""
         if not self.device_nms:
             raise ValueError("engine built without device_nms=True")

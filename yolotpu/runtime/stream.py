@@ -1,16 +1,16 @@
 """Streaming inference orchestrator (camera/video modes).
 
-TPU re-design of the board app's streaming loops (``linux_app/src/main.c:
+Re-design of the board app's streaming loops (``linux_app/src/main.c:
 877-1288``): frames -> ``--infer-every`` decimation -> letterbox -> device ->
 region decode -> NMS -> sinks (JSONL, annotated PNGs, MJPEG push, stdout).
 
 Pipelining: JAX dispatch is asynchronous, so the loop runs one step ahead —
-while frame N executes on the TPU, frame N-1's head is read back and
+while frame N executes on the device, frame N-1's head is read back and
 postprocessed on host. This is the XLA-era equivalent of the reference's
 double-buffered DMA/compute overlap (``hls/core/core_scheduler.cpp:33-61``).
 
 A watchdog bounds each device step (env ``YOLO2_LAYER_TIMEOUT_MS``, default
-60000 like ``linux_app/include/yolo2_config.h:141``): a TPU step that
+60000 like ``linux_app/include/yolo2_config.h:141``): a device step that
 exceeds it raises instead of hanging the stream forever.
 """
 
@@ -165,7 +165,7 @@ class StreamRunner:
     def _run_batched(self, frame_source) -> dict:
         """Double-buffered batched feed: accumulate ``batch_size`` frames,
         dispatch the batch, and postprocess batch k-1 on the host while
-        batch k executes on the TPU (the reference's compute/transfer
+        batch k executes on the device (the reference's compute/transfer
         ping-pong, core_scheduler.cpp:33-61, at batch granularity)."""
         from ..image import letterbox_image
         cfg = self.cfg
@@ -316,10 +316,9 @@ class StreamRunner:
                           0, 255).astype(np.uint8)
             if cfg.save_annotated_dir:
                 os.makedirs(cfg.save_annotated_dir, exist_ok=True)
-                from PIL import Image
-                Image.fromarray(rgb).save(
-                    os.path.join(cfg.save_annotated_dir,
-                                 f"frame_{infer_idx:06d}.png"))
+                from ..image import save_rgb
+                save_rgb(rgb, os.path.join(cfg.save_annotated_dir,
+                                           f"frame_{infer_idx:06d}.png"))
             if self._mjpeg:
                 self._mjpeg.update_rgb(rgb)
 

@@ -1,4 +1,4 @@
-"""YOLOv2 training on TPU: region loss + SGD step, mesh-shardable.
+"""YOLOv2 training: region loss + SGD step, mesh-shardable.
 
 The reference stack is inference-only (SURVEY §0); training exists here
 because a complete framework must regenerate its own weight artifacts
@@ -164,14 +164,16 @@ def region_loss(head: jnp.ndarray, truth_boxes: jnp.ndarray,
 
 def make_train_step(spec: NetworkSpec, lr: float = 1e-3,
                     momentum: float = 0.9, cfg: LossConfig = LossConfig(),
-                    mesh=None, clip_norm: float = 0.0):
+                    mesh=None, clip_norm: float = 1.0):
     """SGD+momentum training step over fp32 params (functional, jittable).
     Pass ``mesh`` when running tp-sharded so the forward pins its
     reorg/route boundaries (avoids GSPMD involuntary rematerialization).
-    ``clip_norm`` > 0 clips the global gradient norm — required for the
-    full 23-conv graph, whose BN is folded into the weights (the artifact
-    contract stores folded weights, weights/README.md:33-59), so nothing
-    renormalizes activations and early steps otherwise explode."""
+    ``clip_norm`` > 0 clips the global gradient norm (0 turns the clip
+    off). The default clip is required for the full 23-conv graph, whose
+    BN is folded into the weights (the artifact contract stores folded
+    weights, weights/README.md:33-59), so nothing renormalizes
+    activations: unclipped, yolov2 at 160² and up reaches NaN by its
+    third step at the default lr (tests/test_train_parallel.py)."""
     fwd = m.build_forward(spec, "fp32", outputs=("head",), mesh=mesh)
     rspec = spec.region
 
